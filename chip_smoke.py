@@ -1,0 +1,428 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+Run from the root of a checkout on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure raises and exits non-zero,
+so a run that prints the final ``{"ok": true, ...}`` line passed all:
+
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, in parallel) and print the card and power limit.
+2. Hold each kernel against its plain PyTorch version on the card, at the
+   launch shapes the main path gives it and on edge cases (an empty fiber
+   block or window, a fiber at exactly its capacity, bfloat16), with the
+   kernel's, the plain version's and ``torch.matmul``'s times (CUDA events,
+   median after warm-up) beside the least time the card could take.
+3. The main path: ``schedule_single_kernel(aespa_equal4())`` then
+   ``execute_schedule`` on the card for the Table I workloads whose
+   partitions the ported kernels cover, each against a float64 dense
+   product on the card.
+   Then each workload once more under ``torch.profiler``: wall, device
+   busy time and device time by kernel name (where the time goes).
+4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
+   path (each must be > 0) and the numbers of phase 2.
+
+It imports nothing of JAX or of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import repro_torch  # noqa: E402
+from repro_torch.core import dse, scheduler  # noqa: E402
+from repro_torch.core import hetero_matmul as hm  # noqa: E402
+from repro_torch.core.workloads import BY_NAME, Workload, synthesize  # noqa: E402
+from repro_torch.formats import ell  # noqa: E402
+from repro_torch.formats.taxonomy import DataflowClass  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import spgemm_outer as outer_mod  # noqa: E402
+from repro_torch.kernels import spmm as spmm_mod  # noqa: E402
+
+#: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the f32
+#: rate of the CUDA cores, the units the ported kernels compute on.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+#: Tolerances of the JAX package's kernel tests (tests/test_kernels.py:
+#: f32 1e-4, bf16 2e-2), applied normwise: max |err| <= tol·max(1, max |ref|).
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+#: (label, Table I workload, max_elems for ``synthesize``). The first five
+#: run at Table I size except bibd_81_3, which synthesize reduces to
+#: 613x16288x8240 (its full B is 14.6 GB dense). The last is citeseer
+#: reduced to 683x683x766: the only size at which a Table I partition's
+#: outer-product tables fit the sparse body's 8 MiB "auto" budget.
+MAIN_PATH = (
+    ("citeseer", "citeseer", 1 << 27),
+    ("chem97ZtZ", "chem97ZtZ", 1 << 27),
+    ("m3plates", "m3plates", 1 << 27),
+    ("synthetic_dense", "synthetic_dense", 1 << 27),
+    ("bibd_81_3", "bibd_81_3", 1 << 27),
+    ("citeseer_683", "citeseer", 1 << 19),
+)
+BLOCK = 128  # execute_schedule's default block
+
+REPLACES = {
+    "spmm_sparse": ("src/repro_torch/kernels/csrc/spmm.cu",
+                    "src/repro/kernels/spmm.py:78"),
+    "spmm_reference": ("src/repro_torch/kernels/csrc/spmm.cu",
+                       "src/repro/kernels/spmm.py:42"),
+    "outer_reference": ("src/repro_torch/kernels/csrc/spgemm_outer.cu",
+                        "src/repro/kernels/spgemm_outer.py:45"),
+    "outer_sparse": ("src/repro_torch/kernels/csrc/spgemm_outer.cu",
+                     "src/repro/kernels/spgemm_outer.py:96"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after one
+    warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def profile_run(fn, top: int = 6) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: wall ms (host clock,
+    ending in a synchronize), the device's busy ms (union of its kernel,
+    copy and memset intervals), and device ms by name, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        r = e.time_range
+        spans.append((r.start, r.end))
+        name = e.name.split("(")[0].replace("void ", "")[:70]
+        by_name[name] = by_name.get(name, 0.0) + (r.end - r.start) / 1e3
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "device_events": len(spans),
+            "top_device_ms": [[n, ms] for n, ms in ranked[:top]]}
+
+
+class KernelCase:
+    """One kernel call at fixed operands: the kernel, its plain version,
+    the library yardstick, and the work the data needs."""
+
+    def __init__(self, body, label, kernel, plain, library,
+                 in_bytes, out_bytes, flops, dtype, other=None):
+        self.body, self.label = body, label
+        self.kernel, self.plain, self.library = kernel, plain, library
+        self.other = other  # (name, call) of the body "auto" did not pick
+        self.bound_ms, self.bound_by = bound(in_bytes + out_bytes, flops)
+        self.dtype = dtype
+
+    def check(self, reps: int = 0) -> dict:
+        want = self.plain()
+        tol = TOL[str(self.dtype).replace("torch.", "")]
+        err = self._error(self.kernel(), want)
+        row = {"name": self.body, "case": self.label, "max_abs_err": err,
+               "tol": tol, "bound_ms": self.bound_ms,
+               "bound_by": self.bound_by}
+        bad = [self.body] if err is None else []
+        if reps:
+            row["ms"] = time_ms(self.kernel, reps)
+            row["plain_ms"] = time_ms(self.plain, max(1, reps // 2))
+            row["library_ms"] = time_ms(self.library, reps)
+            if self.other is not None:  # the body "auto" passed over
+                name, call = self.other
+                row["other_body"] = name
+                row["other_max_abs_err"] = self._error(call(), want)
+                row["other_ms"] = time_ms(call, reps)
+                if row["other_max_abs_err"] is None:
+                    bad.append(name)
+        log("kernel " + json.dumps(row))
+        if bad:
+            raise AssertionError(f"{bad} ({self.label}) disagree with the "
+                                 "plain version")
+        return row
+
+    def _error(self, got, want):
+        """max |got - want|, or None when it fails the normwise check:
+        kernel and plain version add up to K products in different orders,
+        so an element that cancels to near zero keeps the rounding error
+        of its large partial sums."""
+        torch.cuda.synchronize()
+        tol = TOL[str(self.dtype).replace("torch.", "")]
+        gf, wf = got.float(), want.float()
+        if not got.numel():
+            return 0.0
+        err = float((gf - wf).abs().max())
+        scale = float(wf.abs().max())
+        ok = bool(torch.isfinite(gf).all()) and err <= tol * max(1.0, scale)
+        return err if ok else None
+
+
+def spmm_case(label, ap, bp, bn, method="auto"):
+    chosen = spmm_mod.resolve_method(method, ap.shape[1], bp.cap)
+    other = "reference" if chosen == "sparse" else "sparse"
+    b_dense = ell.ell_to_dense(bp).to(ap.dtype)
+    m, n = ap.shape[0], bp.shape[1]
+    nnz = int((bp.ids >= 0).sum())
+    return KernelCase(
+        "spmm_" + chosen, label,
+        kernel=lambda: spmm_mod.spmm(ap, bp, bn=bn, method=chosen),
+        plain=lambda: spmm_mod.spmm_plain(ap, bp),
+        library=lambda: torch.matmul(ap, b_dense),
+        in_bytes=nbytes(ap, bp.vals, bp.ids),
+        out_bytes=m * n * ap.element_size(),
+        flops=2.0 * m * nnz, dtype=ap.dtype,
+        other=("spmm_" + other,
+               lambda: spmm_mod.spmm(ap, bp, bn=bn, method=other)))
+
+
+def outer_case(label, ap, bp, bm, bn, method="auto"):
+    m, k = ap.shape
+    n = bp.shape[1]
+    chosen = outer_mod.resolve_method(method, m, k, n)
+    other = "reference" if chosen == "sparse" else "sparse"
+    a_dense = ell.ell_to_dense(ap)
+    b_dense = ell.ell_to_dense(bp)
+    pairs = float(((ap.ids >= 0).sum(1).double()
+                   * (bp.ids >= 0).sum(1).double()).sum())
+    return KernelCase(
+        "outer_" + chosen, label,
+        kernel=lambda: outer_mod.spgemm_outer(ap, bp, bm=bm, bn=bn,
+                                              method=chosen),
+        plain=lambda: outer_mod.spgemm_outer_plain(ap, bp),
+        library=lambda: torch.matmul(a_dense, b_dense),
+        in_bytes=nbytes(ap.vals, ap.ids, bp.vals, bp.ids),
+        out_bytes=m * n * ap.vals.element_size(),
+        flops=2.0 * pairs, dtype=ap.vals.dtype,
+        other=("outer_" + other,
+               lambda: outer_mod.spgemm_outer(ap, bp, bm=bm, bn=bn,
+                                              method=other)))
+
+
+def partition_cases(label, a_d, b_d, schedule):
+    """The kernel calls the executor makes for ``schedule``, built through
+    the executor's own preparation and the ops layer's padding."""
+    parts = [p for p in schedule.partitions if not p.region.empty]
+    cases = []
+    for p, sa, sb, caps in hm.prepare_partitions([(a_d, b_d, parts)])[0]:
+        pa, pb = hm._prep_operands(p.cls, sa, sb, p.mirror, caps)
+        r = p.region
+        tag = (f"{label} [{r.m0}:{r.m1},{r.k0}:{r.k1},{r.n0}:{r.n1}] "
+               f"{p.cls.value}{' mirror' if p.mirror else ''}")
+        if p.cls == DataflowClass.SPMM:
+            operands = (ops.spmm_mirror_operands if p.mirror
+                        else ops.spmm_operands)
+            ap, bp, bn = operands(pa, pb, bm=BLOCK, bn=BLOCK)
+            cases.append(spmm_case(tag, ap, bp, bn))
+        elif p.cls == DataflowClass.SPGEMM_OUTER:
+            ap, bp, bm, bn = ops.spgemm_outer_operands(
+                pa, pb, bm=BLOCK, bn=BLOCK, bk=BLOCK)
+            cases.append(outer_case(tag, ap, bp, bm, bn))
+        else:
+            raise AssertionError(f"{tag}: class not ported")
+    return cases
+
+
+def edge_cases():
+    """Small operands built to hit the kernels' edges: an all-zero fiber
+    block (SpMM) or M window (outer), a fiber at exactly its capacity, and
+    bfloat16 values."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def sparse(r, c, density):
+        x = torch.randn(r, c, device="cuda", generator=gen)
+        return x * (torch.rand(r, c, device="cuda", generator=gen) < density)
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        # SpMM: B columns 128..255 empty (a dead fiber block at bn=128);
+        # column 3 holds exactly cap=16 nonzeros, the most of any column.
+        a = sparse(200, 300, 1.0).to(dtype)
+        b = sparse(300, 384, 0.01)
+        b[:, 128:256] = 0
+        b[:, 3] = 0
+        b[torch.arange(0, 300, 19)[:16], 3] = 1.5
+        b_ell = ell.dense_to_ell(b.to(dtype), 1, 16, strict=True)
+        for method in ("sparse", "reference"):
+            ap, bp, bn = ops.spmm_operands(a, b_ell, bm=128, bn=128)
+            cases.append(spmm_case(f"edge {name}", ap, bp, bn, method))
+        # Outer: A's M window 128..255 empty; fiber 5 of A exactly at cap.
+        a = sparse(384, 260, 0.01)
+        a[128:256, :] = 0
+        a[:, 5] = 0
+        a[torch.arange(0, 384, 23)[:16], 5] = -2.0
+        b = sparse(260, 320, 0.05)
+        a_ell = ell.dense_to_ell(a.to(dtype), 1, 16, strict=True)
+        b_ell = ell.dense_to_ell(b.to(dtype), 0,
+                                 int((b != 0).sum(1).max()), strict=True)
+        for method in ("sparse", "reference"):
+            ap, bp, bm, bn = ops.spgemm_outer_operands(a_ell, b_ell, bm=128,
+                                                       bn=128)
+            cases.append(outer_case(f"edge {name}", ap, bp, bm, bn,
+                                    method))
+    return cases
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    if not Path(repro_torch.__file__).resolve().is_relative_to(ROOT):
+        raise RuntimeError(f"repro_torch imported from {repro_torch.__file__}"
+                           f", not from this checkout ({ROOT})")
+    counters = (spmm_mod.launches, outer_mod.launches)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # ---- phase 1: build ------------------------------------------------
+    t0 = time.perf_counter()
+    libs = _build.build_all(extra_flags=("-Xptxas", "-v"))
+    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s, "
+        f"{sorted(p.name for p in libs.values())}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(smi)  # the card's name and power limit, as nvidia-smi gives them
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+
+    # Operands and schedules of the main path, made once from seed 0.
+    config = dse.aespa_equal4()
+    runs = []
+    for label, wname, max_elems in MAIN_PATH:
+        w0 = BY_NAME[wname]
+        a, b, (m, k, n) = synthesize(w0, seed=0, max_elems=max_elems)
+        w = Workload(w0.name, w0.application, m, k, n, w0.d_mk, w0.d_kn)
+        runs.append((label, w, torch.from_numpy(a).cuda(),
+                     torch.from_numpy(b).cuda(),
+                     scheduler.schedule_single_kernel(config, w)))
+
+    # ---- phase 2: each kernel against its plain version ----------------
+    t0 = time.perf_counter()
+    rows = []
+    for label, w, a_d, b_d, schedule in runs:
+        for case in partition_cases(label, a_d, b_d, schedule):
+            rows.append(case.check(reps=5))
+        torch.cuda.empty_cache()
+    for case in edge_cases():
+        case.check()
+    log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 3: the main path ----------------------------------------
+    t0 = time.perf_counter()
+    for counts in counters:
+        for key in counts:
+            counts[key] = 0
+    for label, w, a_d, b_d, schedule in runs:
+        before = {k: v for c in counters for k, v in c.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = hm.execute_schedule(a_d, b_d, schedule)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        bodies = {k: v - before[k] for c in counters for k, v in c.items()
+                  if v != before[k]}
+        ref = a_d.double() @ b_d.double()
+        rel = float((out.double() - ref).abs().max()
+                    / ref.abs().max().clamp_min(1e-30))
+        parts = [f"[{p.region.m0}:{p.region.m1},{p.region.k0}:{p.region.k1},"
+                 f"{p.region.n0}:{p.region.n1}] {p.cls.value}"
+                 f"{' mirror' if p.mirror else ''}"
+                 for p in schedule.partitions]
+        log(f"main {label} {w.m}x{w.k}x{w.n}: partitions {parts}, bodies "
+            f"{bodies}, wall {wall_ms:.3f} ms, rel err {rel:.3e}")
+        if tuple(out.shape) != (w.m, w.n) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"{label}: bad output {tuple(out.shape)}")
+        if rel > TOL["float32"]:
+            raise AssertionError(f"{label}: relative error {rel:.3e} against "
+                                 "the float64 product")
+        del out, ref
+        torch.cuda.empty_cache()
+    launches = {k: v for c in counters for k, v in c.items()}
+    log(f"phase 3 main path: {time.perf_counter() - t0:.1f} s, "
+        f"launches {launches}")
+
+    # ---- phase 3b: where the main path's time goes ----------------------
+    t0 = time.perf_counter()
+    for label, w, a_d, b_d, schedule in runs:
+        log(f"profile {label}: " + json.dumps(
+            profile_run(lambda: hm.execute_schedule(a_d, b_d, schedule))))
+    log(f"phase 3b profile: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 4: the kernels line ---------------------------------------
+    kernels = []
+    for name, (source, replaces) in REPLACES.items():
+        mine = [r for r in rows if r["name"] == name]
+        if not mine:
+            raise AssertionError(f"{name}: no main-path launch shape")
+        top = max(mine, key=lambda r: r["ms"])  # the dominant launch
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "case": top["case"]})
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

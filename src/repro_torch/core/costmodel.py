@@ -1,0 +1,465 @@
+"""Analytical performance/energy model (paper §VI), the part of
+``repro.core.costmodel`` that single-kernel scheduling reads, copied so the
+port carries no dependency on the JAX package.
+
+Approximates each kernel's runtime by the tripcount of the compute loop of
+its TACO kernel (Fig 2), divided by the usable PEs (bounded by the class's
+parallelism dimension, Fig 1), at 1 GHz; integrates HBM bandwidth (sparse
+kernels are often memory-bound); and charges energy for PE activity plus
+on-chip/off-chip data movement. Uniform random sparsity assumed, as in the
+paper.
+
+Units: cycles (1 cycle = 1 ns at 1 GHz), bytes, pJ.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core import hwdb
+from repro_torch.formats.taxonomy import DataflowClass
+
+WORD = 4          # int32/fp32 words, as in the paper's HLS designs
+IDX = 4           # coordinate metadata word
+
+
+# --------------------------------------------------------------- clusters
+@dataclasses.dataclass(frozen=True)
+class ClusterSpec:
+    """One sub-accelerator cluster inside an accelerator."""
+
+    name: str
+    supported: Tuple[DataflowClass, ...]
+    pes: int
+    area_mm2_per_pe: float
+    power_mw_per_pe: float
+
+    @property
+    def area_mm2(self) -> float:
+        return self.pes * self.area_mm2_per_pe
+
+    def supports(self, cls: DataflowClass) -> bool:
+        return cls in self.supported
+
+
+def basic_cluster(cls: DataflowClass, pes: int) -> ClusterSpec:
+    p = hwdb.PROFILES[cls]
+    return ClusterSpec(cls.value, (cls,), pes, p.area_mm2_per_pe,
+                       p.power_mw_per_pe)
+
+
+def hybrid_cluster(pes: int) -> ClusterSpec:
+    """Homogeneous-hybrid PE: supports TPU+EIE+ExTensor dataflows (Fig 1)."""
+    return ClusterSpec(
+        "hybrid",
+        (DataflowClass.GEMM, DataflowClass.SPMM, DataflowClass.SPGEMM_INNER),
+        pes, hwdb.HYBRID_AREA_PER_PE, hwdb.HYBRID_POWER_PER_PE,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class AcceleratorConfig:
+    """A (possibly heterogeneous) accelerator under the area constraint."""
+
+    name: str
+    clusters: Tuple[ClusterSpec, ...]
+    hbm_bw: float = hwdb.HBM_BW      # bytes/s; math.inf = unlimited
+    #: Global scratchpad capacity (bytes). A design-vector axis of the joint
+    #: DSE space; only the reuse-aware traffic model reads it (re-streaming
+    #: kicks in when a stationary operand overflows this capacity).
+    scratchpad_bytes: float = hwdb.SCRATCH_BYTES
+
+    @property
+    def total_pes(self) -> int:
+        return sum(c.pes for c in self.clusters)
+
+    @property
+    def area_mm2(self) -> float:
+        return sum(c.area_mm2 for c in self.clusters)
+
+    @property
+    def peak_tflops(self) -> float:
+        return hwdb.peak_tflops(self.total_pes)
+
+    def clusters_supporting(self, cls: DataflowClass):
+        return [i for i, c in enumerate(self.clusters) if c.supports(cls)]
+
+
+# ------------------------------------------------------- canonical configs
+def homogeneous(cls: DataflowClass, hbm_bw: float = hwdb.HBM_BW,
+                scratchpad_bytes: float = hwdb.SCRATCH_BYTES
+                ) -> AcceleratorConfig:
+    pes = hwdb.PROFILES[cls].fig1_pes
+    return AcceleratorConfig(f"homog_{cls.value}", (basic_cluster(cls, pes),),
+                             hbm_bw, scratchpad_bytes)
+
+
+def homogeneous_hybrid(hbm_bw: float = hwdb.HBM_BW,
+                       scratchpad_bytes: float = hwdb.SCRATCH_BYTES
+                       ) -> AcceleratorConfig:
+    return AcceleratorConfig("homog_hybrid", (hybrid_cluster(hwdb.HYBRID_PES),),
+                             hbm_bw, scratchpad_bytes)
+
+
+def aespa_from_fractions(
+    fractions: Dict[DataflowClass, float],
+    name: str = "aespa",
+    hbm_bw: float = hwdb.HBM_BW,
+    scratchpad_bytes: float = hwdb.SCRATCH_BYTES,
+) -> AcceleratorConfig:
+    """Split the compute area budget across sub-accelerator classes
+    (the AESPA template's DSE parameter, §IV-A)."""
+    total = sum(fractions.values())
+    clusters = []
+    for cls, frac in fractions.items():
+        if frac <= 0:
+            continue
+        pes = hwdb.pes_for_area(cls, hwdb.COMPUTE_MM2 * frac / total)
+        if pes > 0:
+            clusters.append(basic_cluster(cls, pes))
+    return AcceleratorConfig(name, tuple(clusters), hbm_bw, scratchpad_bytes)
+
+
+#: Baseline display names, keyed the way Fig 10/12/13 label their bars.
+BASELINE_CLASSES: Dict[str, DataflowClass] = {
+    "homog_tpu": DataflowClass.GEMM,
+    "homog_eie": DataflowClass.SPMM,
+    "homog_extensor": DataflowClass.SPGEMM_INNER,
+    "homog_outerspace": DataflowClass.SPGEMM_OUTER,
+    "homog_matraptor": DataflowClass.SPGEMM_GUSTAVSON,
+}
+
+
+def baseline_configs(hbm_bw: float = hwdb.HBM_BW,
+                     include_hybrid: bool = True
+                     ) -> Dict[str, AcceleratorConfig]:
+    """The paper's homogeneous comparison points, each at the FULL compute
+    area budget (Fig 1 PE counts): EIE-, TPU-, ExTensor-, OuterSPACE- and
+    MatRaptor-like, plus (optionally) the homogeneous-hybrid design. Every
+    DSE result reports speedup/EDP ratios against these, the way Fig 10
+    and Fig 13 do."""
+    out = {name: homogeneous(cls, hbm_bw)
+           for name, cls in BASELINE_CLASSES.items()}
+    if include_hybrid:
+        out["homog_hybrid"] = homogeneous_hybrid(hbm_bw)
+    return out
+
+
+# ------------------------------------------------------- JSON serialization
+def cluster_to_json(c: ClusterSpec) -> Dict:
+    return {
+        "name": c.name,
+        "supported": [cls.value for cls in c.supported],
+        "pes": c.pes,
+        "area_mm2_per_pe": c.area_mm2_per_pe,
+        "power_mw_per_pe": c.power_mw_per_pe,
+    }
+
+
+def cluster_from_json(d: Dict) -> ClusterSpec:
+    return ClusterSpec(
+        name=d["name"],
+        supported=tuple(DataflowClass(v) for v in d["supported"]),
+        pes=int(d["pes"]),
+        area_mm2_per_pe=float(d["area_mm2_per_pe"]),
+        power_mw_per_pe=float(d["power_mw_per_pe"]),
+    )
+
+
+def config_to_json(cfg: AcceleratorConfig) -> Dict:
+    """JSON-safe dict for an accelerator config (``inf`` bandwidth is
+    encoded as the string "inf" so the payload survives strict parsers)."""
+    return {
+        "name": cfg.name,
+        "hbm_bw": "inf" if math.isinf(cfg.hbm_bw) else cfg.hbm_bw,
+        "scratchpad_bytes": cfg.scratchpad_bytes,
+        "clusters": [cluster_to_json(c) for c in cfg.clusters],
+    }
+
+
+def config_from_json(d: Dict) -> AcceleratorConfig:
+    """Inverse of :func:`config_to_json`. Payloads written before the
+    scratchpad became a config field (no ``scratchpad_bytes`` key) load at
+    the historical 64 MB constant (``hwdb.SCRATCH_BYTES``)."""
+    bw = d.get("hbm_bw", hwdb.HBM_BW)
+    return AcceleratorConfig(
+        name=d["name"],
+        clusters=tuple(cluster_from_json(c) for c in d["clusters"]),
+        hbm_bw=math.inf if bw == "inf" else float(bw),
+        scratchpad_bytes=float(d.get("scratchpad_bytes",
+                                     hwdb.SCRATCH_BYTES)),
+    )
+
+
+# ------------------------------------------------------------ primitives
+def tripcount(cls: DataflowClass, m: int, k: int, n: int,
+              d_mk: float, d_kn: float, mirror: bool = False) -> float:
+    """Iterations of the innermost compute loop of the Fig 2 kernel."""
+    if cls == DataflowClass.GEMM:
+        return float(m) * k * n
+    if cls == DataflowClass.SPMM:
+        # EIE: loop over the compressed operand's nonzeros × the dense dim.
+        d = d_mk if mirror else d_kn
+        return float(m) * k * n * d
+    # All SpGEMM classes iterate (expected) matching nonzero pairs.
+    return float(m) * k * n * d_mk * d_kn
+
+
+def parallelism_bound(cls: DataflowClass, m: int, k: int, n: int,
+                      mirror: bool = False) -> float:
+    """Max PEs the workload's dimensions let this class use (Fig 1)."""
+    if cls == DataflowClass.GEMM:
+        return float(m) * n
+    if cls == DataflowClass.SPMM:
+        return float(m) if mirror else float(n)   # A-compressed -> M bound
+    if cls == DataflowClass.SPGEMM_INNER:
+        return float(max(m, n))                   # "M or N"
+    if cls == DataflowClass.SPGEMM_OUTER:
+        return float(k)                           # K unrolled spatially
+    if cls == DataflowClass.SPGEMM_GUSTAVSON:
+        return float(n)
+    raise ValueError(cls)
+
+
+def output_density(k: int, d_mk: float, d_kn: float) -> float:
+    """Expected output density under uniform random sparsity:
+    P[O_mn != 0] = 1 - (1 - d_mk·d_kn)^K."""
+    p = d_mk * d_kn
+    if p >= 1.0:
+        return 1.0
+    # stable for tiny p·K
+    return float(1.0 - math.exp(k * math.log1p(-p)))
+
+
+# ------------------------------------------------- reuse-aware traffic
+#: Default for the re-streaming traffic model. ``False`` keeps the paper's
+#: §VI assumption (compulsory operand bytes only); ``True`` charges extra
+#: HBM traffic when a kernel's stationary operand exceeds the 64 MB global
+#: scratchpad (ROADMAP "streaming/reuse-aware traffic model").
+_REUSE_AWARE_TRAFFIC = False
+
+
+def set_reuse_aware_traffic(enabled: bool) -> bool:
+    """Toggle the process-wide re-streaming traffic model; returns the
+    previous value. Clears the scheduler's schedule/placement caches —
+    they key on (config, workload) only, not on this flag."""
+    global _REUSE_AWARE_TRAFFIC
+    prev = _REUSE_AWARE_TRAFFIC
+    _REUSE_AWARE_TRAFFIC = bool(enabled)
+    if prev != _REUSE_AWARE_TRAFFIC:
+        from repro_torch.core import scheduler as _sched  # lazy: circular import
+        _sched.clear_schedule_cache()
+    return prev
+
+
+def reuse_aware_traffic() -> bool:
+    return _REUSE_AWARE_TRAFFIC
+
+
+def restream_extra_bytes(cls: DataflowClass, a_bytes, b_bytes, out_bytes,
+                         mirror: bool = False,
+                         scratch_bytes: Optional[float] = None):
+    """Extra HBM traffic beyond compulsory when the stationary operand's
+    working set exceeds the global scratchpad.
+
+    Coarse tiling model: the stationary operand R is processed in
+    ``ceil(R / scratch_bytes)`` scratchpad-resident tiles and the
+    streaming operand S is re-read once per tile —
+    ``extra = (ceil(R/scratch) - 1) × S``; zero whenever R fits.
+    Stationary/streaming per dataflow: GEMM, inner SpGEMM and Gustavson
+    hold B stationary and stream A; SpMM holds its *compressed* operand
+    stationary and streams the dense one; the outer product holds the
+    output partials stationary and streams both inputs.
+
+    ``scratch_bytes`` is the evaluated design's
+    :attr:`AcceleratorConfig.scratchpad_bytes` (``None`` = the historical
+    64 MB ``hwdb.SCRATCH_BYTES`` constant). numpy-compatible: every
+    argument may be a scalar float or an array — the scheduler's batched
+    template eval calls this with fraction-sweep (and candidate-axis)
+    arrays."""
+    if scratch_bytes is None:
+        scratch_bytes = hwdb.SCRATCH_BYTES
+    if cls == DataflowClass.SPGEMM_OUTER:
+        resident, streaming = out_bytes, a_bytes + b_bytes
+    elif cls == DataflowClass.SPMM and mirror:
+        resident, streaming = a_bytes, b_bytes
+    else:
+        resident, streaming = b_bytes, a_bytes
+    passes = np.ceil(np.asarray(resident, dtype=float) / scratch_bytes)
+    return np.maximum(passes - 1.0, 0.0) * streaming
+
+
+def operand_components(cls: DataflowClass, m: int, k: int, n: int,
+                       d_mk: float, d_kn: float, mirror: bool = False
+                       ) -> Tuple[float, float, float]:
+    """(a_bytes, b_bytes, out_bytes) of one kernel — the compulsory-traffic
+    terms of :func:`operand_bytes`, exposed separately so the batched
+    evaluator can feed :func:`restream_extra_bytes` per candidate."""
+    def dense(r, c):
+        return float(r) * c * WORD
+
+    def compressed(r, c, d, fibers):
+        return float(r) * c * d * (WORD + IDX) + fibers * IDX
+
+    if cls == DataflowClass.GEMM:
+        a, b = dense(m, k), dense(k, n)
+    elif cls == DataflowClass.SPMM:
+        if mirror:
+            a, b = compressed(m, k, d_mk, m), dense(k, n)
+        else:
+            a, b = dense(m, k), compressed(k, n, d_kn, n)
+    elif cls == DataflowClass.SPGEMM_INNER:
+        a, b = compressed(m, k, d_mk, m), compressed(k, n, d_kn, n)
+    elif cls == DataflowClass.SPGEMM_OUTER:
+        a, b = compressed(m, k, d_mk, k), compressed(k, n, d_kn, k)
+    elif cls == DataflowClass.SPGEMM_GUSTAVSON:
+        a, b = compressed(m, k, d_mk, k), compressed(k, n, d_kn, n)
+    else:
+        raise ValueError(cls)
+    d_out = output_density(k, d_mk, d_kn)
+    if d_out < 0.5:
+        out = compressed(m, n, d_out, m)
+    else:
+        out = dense(m, n)
+    return a, b, out
+
+
+def operand_bytes(cls: DataflowClass, m: int, k: int, n: int,
+                  d_mk: float, d_kn: float, mirror: bool = False,
+                  reuse_aware: Optional[bool] = None,
+                  scratch_bytes: Optional[float] = None) -> float:
+    """HBM traffic: operand reads (format-dependent) + output write.
+
+    Outputs of sparse×sparse products stream back compressed (value +
+    coordinate per expected nonzero) — the (de)compressor path of §IV-C;
+    near-dense outputs write dense. ``reuse_aware`` (default: the
+    process-wide :func:`set_reuse_aware_traffic` flag, off) additionally
+    charges :func:`restream_extra_bytes` when the stationary operand
+    overflows the scratchpad (``scratch_bytes``; ``None`` = the 64 MB
+    default — pass the config's :attr:`AcceleratorConfig.scratchpad_bytes`
+    so the joint DSE's memory axis reaches the traffic model)."""
+    a, b, out = operand_components(cls, m, k, n, d_mk, d_kn, mirror)
+    total = a + b + out
+    if reuse_aware is None:
+        reuse_aware = _REUSE_AWARE_TRAFFIC
+    if reuse_aware:
+        total += float(restream_extra_bytes(cls, a, b, out, mirror,
+                                            scratch_bytes=scratch_bytes))
+    return total
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionCost:
+    """Cost of one partition on one cluster."""
+
+    cls: DataflowClass
+    cycles: float            # compute cycles on the assigned PEs
+    pes_used: float
+    bytes_moved: float
+    effectual_macs: float
+    energy_pj: float         # active-PE energy (diagnostic; totals charge
+                             # powered-cluster power × runtime instead)
+
+
+def partition_cost(cls: DataflowClass, cluster: ClusterSpec,
+                   m: int, k: int, n: int, d_mk: float, d_kn: float,
+                   mirror: bool = False,
+                   pes_override: Optional[int] = None,
+                   reuse_aware: Optional[bool] = None,
+                   scratch_bytes: Optional[float] = None) -> PartitionCost:
+    if m <= 0 or k <= 0 or n <= 0:
+        return PartitionCost(cls, 0.0, 0.0, 0.0, 0.0, 0.0)
+    pes = cluster.pes if pes_override is None else pes_override
+    trips = tripcount(cls, m, k, n, d_mk, d_kn, mirror)
+    p_eff = min(float(pes), parallelism_bound(cls, m, k, n, mirror))
+    cycles = math.ceil(trips / max(p_eff, 1.0))
+    nbytes = operand_bytes(cls, m, k, n, d_mk, d_kn, mirror,
+                           reuse_aware=reuse_aware,
+                           scratch_bytes=scratch_bytes)
+    effectual = float(m) * k * n * d_mk * d_kn
+    # pJ: mW/PE × ns == pJ; active PEs for the duration of the partition.
+    energy = cluster.power_mw_per_pe * p_eff * cycles
+    return PartitionCost(cls, float(cycles), p_eff, nbytes, effectual, energy)
+
+
+# ------------------------------------------------------------- aggregation
+@dataclasses.dataclass(frozen=True)
+class KernelReport:
+    """Whole-kernel execution estimate on an accelerator config."""
+
+    runtime_s: float
+    compute_cycles: float          # critical-path cluster cycles
+    mem_s: float
+    bytes_moved: float
+    energy_pj: float               # compute + data movement
+    effectual_macs: float
+    effective_utilization: float   # effectual MACs / (all PEs × runtime)
+    memory_bound: bool
+
+    @property
+    def edp(self) -> float:
+        return self.energy_pj * 1e-12 * self.runtime_s  # J·s
+
+
+def powered_power_mw(config: AcceleratorConfig,
+                     per_cluster_cycles: Dict[int, float]) -> float:
+    """Total power (mW) of the clusters a schedule actually touches.
+
+    Sub-accelerator clusters are independent blocks (§IV-A), so a cluster
+    with no partitions assigned is power-gated for the kernel's duration;
+    a *powered* cluster burns its full nameplate power whether its PEs are
+    doing effectual work or idling — that is the "utilization" half of the
+    paper's §VI energy model (low utilization = paid-for-but-wasted power).
+    Homogeneous designs are a single cluster and therefore always pay for
+    the whole array.
+    """
+    return sum(c.power_mw_per_pe * c.pes for i, c in enumerate(config.clusters)
+               if per_cluster_cycles.get(i, 0.0) > 0.0)
+
+
+def aggregate(config: AcceleratorConfig,
+              per_cluster_cycles: Dict[int, float],
+              parts: Sequence[PartitionCost]) -> KernelReport:
+    """Combine partition costs into a kernel report.
+
+    Runtime = max(slowest cluster, HBM transfer time) — compute/memory
+    overlap assumed (double-buffered global scratchpad, §IV-B).
+    Energy = powered-cluster power × runtime (utilization term, §VI:
+    unused clusters are power-gated, powered clusters burn nameplate
+    power for the kernel's duration) + switching energy of effectual MACs
+    + data movement (paper §VI: "utilization of the accelerator and the
+    on-chip data movement").
+    """
+    compute_cycles = max(per_cluster_cycles.values(), default=0.0)
+    compute_s = compute_cycles / hwdb.FREQ_HZ
+    total_bytes = sum(p.bytes_moved for p in parts)
+    mem_s = 0.0 if math.isinf(config.hbm_bw) else total_bytes / config.hbm_bw
+    runtime_s = max(compute_s, mem_s, 1e-12)
+    effectual = sum(p.effectual_macs for p in parts)
+    runtime_cycles = runtime_s * hwdb.FREQ_HZ
+    energy = (
+        powered_power_mw(config, per_cluster_cycles) * runtime_cycles
+        + total_bytes * (hwdb.E_HBM_PER_BYTE + hwdb.E_SCRATCH_PER_BYTE)
+        + effectual * hwdb.E_MAC
+    )
+    util = effectual / max(config.total_pes * runtime_s * hwdb.FREQ_HZ, 1.0)
+    return KernelReport(
+        runtime_s=runtime_s,
+        compute_cycles=compute_cycles,
+        mem_s=mem_s,
+        bytes_moved=total_bytes,
+        energy_pj=energy,
+        effectual_macs=effectual,
+        effective_utilization=util,
+        memory_bound=mem_s > compute_s,
+    )
+
+
+def geomean(xs: Sequence[float]) -> float:
+    """Geometric mean with a 1e-30 floor (sequential ``math.log``
+    accumulation, as the JAX package's batched evaluator reproduces it)."""
+    xs = [max(x, 1e-30) for x in xs]
+    return math.exp(sum(math.log(x) for x in xs) / len(xs))

@@ -1,0 +1,179 @@
+"""Heterogeneous matmul executor — the port of
+``repro.core.hetero_matmul``: runs a :class:`KernelSchedule` numerically by
+dispatching each partition to its dataflow-class kernel and merging the
+partial outputs (paper §V-A: K-split partials are reduced at the end).
+
+Operands arrive dense (the host knows the true densities and prepares the
+formats, the paper's §VI assumption). Execution stays on the device:
+slicing, format conversion, kernel dispatch and the merge are torch ops on
+device tensors. The one host synchronisation is a batched fetch of the
+per-partition capacity needs (launch shapes are fixed per call), and those
+capacities are power-of-two bucketed as on the JAX side.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import costmodel as cm
+from repro_torch.core.scheduler import KernelSchedule, schedule_single_kernel
+from repro_torch.core.workloads import Workload
+from repro_torch.formats.ell import bucket_capacity, dense_to_ell
+from repro_torch.formats.taxonomy import DataflowClass
+from repro_torch.kernels import ops
+
+
+def _compressed_operands(cls: DataflowClass, mirror: bool):
+    """Which operands a class compresses, as ``(operand, major_axis)``
+    pairs in REQUIRED_FORMATS order (operand is "a" or "b")."""
+    if cls == DataflowClass.GEMM:
+        return ()
+    if cls == DataflowClass.SPMM:
+        return (("a", 0),) if mirror else (("b", 1),)
+    if cls == DataflowClass.SPGEMM_INNER:
+        return (("a", 0), ("b", 1))
+    if cls == DataflowClass.SPGEMM_OUTER:
+        return (("a", 1), ("b", 0))
+    if cls == DataflowClass.SPGEMM_GUSTAVSON:
+        return (("a", 1), ("b", 1))
+    raise ValueError(cls)
+
+
+def _fiber_nnz_max(x: torch.Tensor, major_axis: int) -> torch.Tensor:
+    """Device-side scalar: max nonzeros in any fiber along ``major_axis``."""
+    return (x != 0).sum(dim=1 - major_axis).max()
+
+
+def _prep_operands(cls: DataflowClass, a, b, mirror: bool, caps):
+    """Device slices -> REQUIRED_FORMATS[cls] operands. ``caps`` are the
+    bucketed capacities of the compressed operands, in
+    :func:`_compressed_operands` order."""
+    if cls == DataflowClass.GEMM:
+        return a, b
+    if cls == DataflowClass.SPMM:
+        if mirror:
+            return dense_to_ell(a, 0, caps[0]), b
+        return a, dense_to_ell(b, 1, caps[0])
+    if cls == DataflowClass.SPGEMM_INNER:
+        return dense_to_ell(a, 0, caps[0]), dense_to_ell(b, 1, caps[1])
+    if cls == DataflowClass.SPGEMM_OUTER:
+        return dense_to_ell(a, 1, caps[0]), dense_to_ell(b, 0, caps[1])
+    if cls == DataflowClass.SPGEMM_GUSTAVSON:
+        return dense_to_ell(a, 1, caps[0]), dense_to_ell(b, 1, caps[1])
+    raise ValueError(cls)
+
+
+def _dispatch_partition(cls: DataflowClass, a, b, mirror: bool, block: int,
+                        device):
+    sized = dict(bm=block, bn=block, device=device)
+    if cls == DataflowClass.SPMM:
+        if mirror:
+            return ops.spmm_mirror(a, b, **sized)
+        return ops.spmm(a, b, **sized)
+    if cls == DataflowClass.SPGEMM_OUTER:
+        return ops.spgemm_outer(a, b, bk=block, **sized)
+    return ops.dispatch(cls, a, b, bk=block, **sized)
+
+
+def prepare_partitions(jobs):
+    """Slice operands and derive bucketed capacities for a batch of jobs,
+    with ONE host sync for every capacity in the batch.
+
+    ``jobs`` is ``[(a_d, b_d, parts), ...]`` (device operands + non-empty
+    partitions); returns, per job, ``[(partition, sa, sb, caps), ...]``.
+    Every capacity comes from the TRUE fiber occupancy, and a cap below the
+    measured need would silently drop nonzeros, so ``cap >= need`` is
+    checked here, host-side, instead of a sync per conversion.
+    """
+    sliced, needs = [], []
+    for a_d, b_d, parts in jobs:
+        rows = []
+        for p in parts:
+            r = p.region
+            sa = a_d[r.m0:r.m1, r.k0:r.k1]
+            sb = b_d[r.k0:r.k1, r.n0:r.n1]
+            refs = []
+            for operand, ax in _compressed_operands(p.cls, p.mirror):
+                x = sa if operand == "a" else sb
+                refs.append((x, ax, len(needs)))
+                needs.append(_fiber_nnz_max(x, ax))
+            rows.append((p, sa, sb, refs))
+        sliced.append(rows)
+    # One host sync for every capacity in the batch.
+    need_vals = torch.stack(needs).tolist() if needs else []
+
+    prepared = []
+    for rows in sliced:
+        out_rows = []
+        for p, sa, sb, refs in rows:
+            caps = []
+            for x, ax, i in refs:
+                need = max(int(need_vals[i]), 1)
+                cap = bucket_capacity(need, max_cap=x.shape[1 - ax])
+                if cap < need:
+                    raise ValueError(
+                        f"partition {p.cls.value} (region {p.region}): "
+                        f"bucketed capacity {cap} below measured fiber "
+                        f"occupancy {need} — would silently drop nonzeros")
+                caps.append(cap)
+            out_rows.append((p, sa, sb, tuple(caps)))
+        prepared.append(out_rows)
+    return prepared
+
+
+def execute_schedule(a, b, schedule: KernelSchedule, block: int = 128,
+                     device=None) -> torch.Tensor:
+    """Run every partition on its assigned sub-accelerator kernel and merge.
+
+    M/N-split partials tile the output; K-split partials for the same
+    output tile sum first, then each tile lands with one add. ``a``/``b``
+    are dense (numpy arrays or tensors); ``device=None`` runs on the card
+    and raises without one, ``device="cpu"`` runs the plain versions.
+    """
+    dev = ops.resolve_device(device)
+    a_d = torch.as_tensor(a, device=dev)
+    b_d = torch.as_tensor(b, device=dev)
+    m, n = a_d.shape[0], b_d.shape[1]
+    out_dtype = torch.promote_types(a_d.dtype, b_d.dtype)
+    parts = [p for p in schedule.partitions if not p.region.empty]
+
+    tiles: dict = {}
+    for p, sa, sb, caps in prepare_partitions([(a_d, b_d, parts)])[0]:
+        pa, pb = _prep_operands(p.cls, sa, sb, p.mirror, caps)
+        partial = _dispatch_partition(p.cls, pa, pb, p.mirror, block, dev)
+        r = p.region
+        tiles.setdefault((r.m0, r.m1, r.n0, r.n1), []).append(partial)
+
+    out = torch.zeros((m, n), dtype=out_dtype, device=dev)
+    for (m0, m1, n0, n1), partials in tiles.items():
+        acc = partials[0].to(out_dtype)
+        for q in partials[1:]:
+            acc = acc + q.to(out_dtype)
+        out[m0:m1, n0:n1] += acc
+    return out
+
+
+def hetero_matmul(a, b, config: cm.AcceleratorConfig, block: int = 128,
+                  device=None):
+    """Schedule + execute ``a @ b`` on a heterogeneous accelerator config.
+
+    Returns ``(result, schedule)``; the schedule carries the analytical
+    report. The densities are exact nonzero fractions (one host sync for
+    both counts); the JAX package's float32 means can differ from them in
+    the last bit.
+    """
+    dev = ops.resolve_device(device)
+    a_d = torch.as_tensor(a, device=dev)
+    b_d = torch.as_tensor(b, device=dev)
+    m, k = a_d.shape
+    k2, n = b_d.shape
+    assert k == k2
+    if a_d.numel() and b_d.numel():
+        nz_a, nz_b = torch.stack([torch.count_nonzero(a_d),
+                                  torch.count_nonzero(b_d)]).tolist()
+        d_mk, d_kn = nz_a / a_d.numel(), nz_b / b_d.numel()
+    else:
+        d_mk = d_kn = 0.0
+    w = Workload("adhoc", "api", m, k, n, d_mk, d_kn)
+    schedule = schedule_single_kernel(config, w)
+    return execute_schedule(a_d, b_d, schedule, block=block,
+                            device=dev), schedule

@@ -1,0 +1,219 @@
+"""Parity of the PyTorch port's ops (``repro_torch.kernels.ops``) with the
+JAX package's (``repro.kernels.ops``) for SpMM, mirrored SpMM and the
+outer-product SpGEMM: the same numpy operands go through the port's plain
+versions on the CPU and through the JAX Pallas kernels in interpret mode,
+as ``tests/test_kernels.py`` runs them. Tolerances are that file's: f32
+``rtol=atol=1e-4``, bf16 ``2e-2``.
+"""
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import formats as jF
+from repro.kernels import ops as jops
+from repro_torch.formats import ell as tell
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import spgemm_outer as touter
+from repro_torch.kernels import spmm as tspmm
+
+# ``repro.kernels`` re-exports functions named like its modules.
+jspmm = sys.modules["repro.kernels.spmm"]
+jouter = sys.modules["repro.kernels.spgemm_outer"]
+
+SHAPES = [
+    (128, 128, 128),   # single block
+    (256, 128, 384),   # multi-block in M and N
+    (100, 90, 70),     # ragged: exercises padding
+    (128, 300, 256),   # ragged K
+]
+DENSITIES = [0.0, 0.05, 0.3]
+DTYPES = ["float32", "bfloat16"]
+JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def tol(dtype):
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+            else dict(rtol=1e-4, atol=1e-4))
+
+
+def sparse(rng, r, c, density):
+    x = rng.standard_normal((r, c)).astype(np.float32)
+    return x * (rng.random((r, c)) < density)
+
+
+def exact_cap(x, major_axis):
+    """The fullest fiber's occupancy: that fiber lands exactly at cap."""
+    work = x if major_axis == 0 else x.T
+    return max(int((work != 0).sum(axis=-1).max()), 1)
+
+
+def to_jax(x, dtype):
+    return jnp.asarray(x, JAX_DTYPE[dtype])
+
+
+def to_torch(x, dtype):
+    return torch.from_numpy(x).to(TORCH_DTYPE[dtype])
+
+
+# One compiled program per (shape, axis, cap) instead of one per primitive.
+jax_dense_to_ell = jax.jit(jF.dense_to_ell, static_argnums=(1, 2))
+
+
+def ells(x, major_axis, dtype):
+    cap = exact_cap(x, major_axis)
+    return (jax_dense_to_ell(to_jax(x, dtype), major_axis, cap),
+            tell.dense_to_ell(to_torch(x, dtype), major_axis, cap))
+
+
+def assert_close(got, want, dtype):
+    if isinstance(want, torch.Tensor):
+        want = want.float().numpy()
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol(dtype))
+
+
+def spmm_operands(shape, density, dtype, seed=2):
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    a = sparse(rng, m, k, 1.0)
+    b = sparse(rng, k, n, density)
+    jb, tb = ells(b, 1, dtype)
+    return a, b, jb, tb
+
+
+def outer_operands(shape, density, dtype, seed=5):
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    a = sparse(rng, m, k, density)
+    b = sparse(rng, k, n, max(density, 0.05))
+    ja, ta = ells(a, 1, dtype)
+    jb, tb = ells(b, 0, dtype)
+    return a, b, ja, ta, jb, tb
+
+
+@pytest.mark.parametrize("method", ["sparse", "reference"])
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_spmm_matches_jax(shape, dtype, density, method):
+    a, b, jb, tb = spmm_operands(shape, density, dtype)
+    want = jops.spmm(to_jax(a, dtype), jb, interpret=True, method=method)
+    got = tops.spmm(to_torch(a, dtype), tb, method=method, device="cpu")
+    assert got.shape == shape[::2] and got.dtype == TORCH_DTYPE[dtype]
+    assert_close(got, want, dtype)
+    assert_close(got, tref.spmm_ref(to_torch(a, dtype), tb), dtype)
+
+
+@pytest.mark.parametrize("method", ["sparse", "reference"])
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_spmm_mirror_matches_jax(shape, dtype, density, method):
+    """Mirrored SpMM, with the JAX ELL carried into the port through
+    numpy (``ell_from_numpy``)."""
+    m, k, n = shape
+    rng = np.random.default_rng(3)
+    a = sparse(rng, m, k, density)
+    b = sparse(rng, k, n, 1.0)
+    ja = jax_dense_to_ell(to_jax(a, dtype), 0, exact_cap(a, 0))
+    ta = tell.ell_from_numpy(np.asarray(ja.vals), np.asarray(ja.ids),
+                             np.asarray(ja.lens), ja.shape, ja.major_axis,
+                             "cpu")
+    want = jops.spmm_mirror(ja, to_jax(b, dtype), interpret=True,
+                            method=method)
+    got = tops.spmm_mirror(ta, to_torch(b, dtype), method=method,
+                           device="cpu")
+    assert got.shape == (m, n)
+    assert_close(got, want, dtype)
+    assert_close(got, tref.spmm_mirror_ref(ta, to_torch(b, dtype)), dtype)
+
+
+@pytest.mark.parametrize("method", ["sparse", "reference"])
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_spgemm_outer_matches_jax(shape, dtype, density, method):
+    a, b, ja, ta, jb, tb = outer_operands(shape, density, dtype)
+    want = jops.spgemm_outer(ja, jb, interpret=True, method=method)
+    got = tops.spgemm_outer(ta, tb, method=method, device="cpu")
+    assert got.shape == shape[::2] and got.dtype == TORCH_DTYPE[dtype]
+    assert_close(got, want, dtype)
+    assert_close(got, tref.spgemm_outer_ref(ta, tb), dtype)
+
+
+def recorder(monkeypatch, module, names):
+    """Wrap ``module``'s body functions so each call records its name."""
+    seen = []
+    for name in names:
+        fn = getattr(module, name)
+
+        def wrapped(*args, _fn=fn, _name=name, **kwargs):
+            seen.append(_name)
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapped)
+    return seen
+
+
+# SpMM densities on both sides of 2·cap <= K; outer shapes on both sides
+# of the 8 MiB table budget (4·K·(M+N) is 0.5 MiB at 256x256x256 and
+# 11 MiB at 1024x1280x1024).
+@pytest.mark.parametrize("op,shape,density", [
+    ("spmm", (128, 128, 128), 0.05), ("spmm", (128, 128, 128), 1.0),
+    ("spmm", (128, 300, 256), 0.3), ("spmm", (128, 300, 256), 1.0),
+    ("spmm", (100, 90, 70), 0.05), ("spmm", (100, 90, 70), 0.3),
+    ("outer", (256, 256, 256), 0.05), ("outer", (256, 256, 256), 0.3),
+    ("outer", (1024, 1280, 1024), 0.01),
+])
+def test_auto_routes_to_the_same_body(monkeypatch, op, shape, density):
+    dtype = "float32"
+    if op == "spmm":
+        jax_seen = recorder(monkeypatch, jspmm,
+                            ["_spmm_sparse", "_spmm_reference"])
+        port_seen = recorder(monkeypatch, tspmm,
+                             ["spmm_sparse", "spmm_reference"])
+        a, b, jb, tb = spmm_operands(shape, density, dtype)
+        jops.spmm.clear_cache()        # trace again, so the body records
+        want = jops.spmm(to_jax(a, dtype), jb, interpret=True)
+        got = tops.spmm(to_torch(a, dtype), tb, device="cpu")
+    else:
+        jax_seen = recorder(monkeypatch, jouter,
+                            ["_outer_sparse", "_outer_reference"])
+        port_seen = recorder(monkeypatch, touter,
+                             ["outer_sparse", "outer_reference"])
+        a, b, ja, ta, jb, tb = outer_operands(shape, density, dtype)
+        jops.spgemm_outer.clear_cache()
+        want = jops.spgemm_outer(ja, jb, interpret=True)
+        got = tops.spgemm_outer(ta, tb, device="cpu")
+    assert len(jax_seen) == len(port_seen) == 1
+    assert jax_seen[0].split("_")[-1] == port_seen[0].split("_")[-1]
+    assert_close(got, want, dtype)
+
+
+def test_unported_classes_raise():
+    from repro_torch.formats.taxonomy import DataflowClass
+
+    for cls in (DataflowClass.GEMM, DataflowClass.SPGEMM_INNER,
+                DataflowClass.SPGEMM_GUSTAVSON):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tops.dispatch(cls, None, None)
+
+
+def test_cpu_wrappers_never_launch():
+    """On CPU tensors the body wrappers run the plain versions and count
+    no kernel launch."""
+    a, b, _, tb = spmm_operands((64, 64, 64), 0.3, "float32")
+    ta_, tb_ = torch.from_numpy(a), tb
+    before = (dict(tspmm.launches), dict(touter.launches))
+    tspmm.spmm_sparse(ta_, tb_, bn=64)
+    tspmm.spmm_reference(ta_, tb_)
+    _, _, _, oa, _, ob = outer_operands((64, 64, 64), 0.3, "float32")
+    touter.outer_sparse(oa, ob, bm=64, bn=64)
+    touter.outer_reference(oa, ob)
+    assert (tspmm.launches, touter.launches) == before
