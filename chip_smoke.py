@@ -10,19 +10,31 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card and power limit.
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   launch shapes the main path gives it and on edge cases (an empty fiber
-   block or window, a fiber at exactly its capacity, bfloat16), with the
-   kernel's, the plain version's and ``torch.matmul``'s times (CUDA events,
-   median after warm-up) beside the least time the card could take.
-3. The main path: ``schedule_single_kernel(aespa_equal4())`` then
-   ``execute_schedule`` on the card for the Table I workloads whose
-   partitions the ported kernels cover, each against a float64 dense
-   product on the card.
-   Then each workload once more under ``torch.profiler``: wall, device
-   busy time and device time by kernel name (where the time goes).
+2. Hold each kernel against its plain PyTorch version on the card, at every
+   launch shape the main paths of phases 3 and 3c give it (each shape
+   once) and on edge cases (ragged GEMM dims, empty fiber blocks and
+   windows, a fiber at exactly its capacity, a K tile live on one side
+   only, fibers whose live slots are out of order, both bodies forced on
+   one pair, bfloat16), with the kernel's, the plain version's and
+   ``torch.matmul``'s times (CUDA events, median after warm-up; one timing
+   for a call over 100 ms) beside the least time the card could take. The
+   body "auto" passed over is timed too.
+3. The single-kernel path: ``schedule_single_kernel(aespa_equal4())`` then
+   ``execute_schedule`` on the card for the nine Table I workloads (and
+   citeseer reduced so that the outer product's sparse body runs), each
+   against a float64 dense product on the card.
+   3b. Each workload once more under ``torch.profiler``: wall, device busy
+   time and device time by kernel name (where the time goes).
+   3c. The many-kernel path on the same operands:
+   ``schedule_many_kernels(aespa_equal4(), Table I)`` and
+   ``execute_many_kernel_schedule`` under ``lpt`` (synthetic_dense whole on
+   the GEMM), ``sjf`` and ``affinity`` (m3plates and speech on the outer
+   product), and ``hetero_many_matmul`` on two synthetic_dense tasks under
+   ``optimized`` (the second split into SpMM k[0:2500] and outer
+   k[2500:5000], a K-split merge); every task against float64. Then each
+   of these runs once more under ``torch.profiler``.
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   path (each must be > 0) and the numbers of phase 2.
+   paths of phases 3 and 3c (each must be > 0) and the numbers of phase 2.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -47,6 +59,8 @@ from repro_torch.core.workloads import BY_NAME, Workload, synthesize  # noqa: E4
 from repro_torch.formats import ell  # noqa: E402
 from repro_torch.formats.taxonomy import DataflowClass  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import gemm as gemm_mod  # noqa: E402
+from repro_torch.kernels import spgemm_inner as inner_mod  # noqa: E402
 from repro_torch.kernels import spgemm_outer as outer_mod  # noqa: E402
 from repro_torch.kernels import spmm as spmm_mod  # noqa: E402
 
@@ -59,20 +73,26 @@ F32_FLOPS_PER_S = 67e12
 #: f32 1e-4, bf16 2e-2), applied normwise: max |err| <= tol·max(1, max |ref|).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
-#: (label, Table I workload, max_elems for ``synthesize``). The first five
-#: run at Table I size except bibd_81_3, which synthesize reduces to
-#: 613x16288x8240 (its full B is 14.6 GB dense). The last is citeseer
-#: reduced to 683x683x766: the only size at which a Table I partition's
-#: outer-product tables fit the sparse body's 8 MiB "auto" budget.
+#: (label, Table I workload, max_elems for ``synthesize``). The nine Table
+#: I workloads run at Table I size except bibd_81_3, which synthesize
+#: reduces to 613x16288x8240 (its full B is 14.6 GB dense). The last is
+#: citeseer reduced to 683x683x766: the only size at which a Table I
+#: partition's outer-product tables fit the sparse body's 8 MiB "auto"
+#: budget. Phase 3c's queue is the first nine, in Table I order.
 MAIN_PATH = (
-    ("citeseer", "citeseer", 1 << 27),
     ("chem97ZtZ", "chem97ZtZ", 1 << 27),
+    ("journals", "journals", 1 << 27),
     ("m3plates", "m3plates", 1 << 27),
     ("synthetic_dense", "synthetic_dense", 1 << 27),
     ("bibd_81_3", "bibd_81_3", 1 << 27),
+    ("speech", "speech", 1 << 27),
+    ("gnmt", "gnmt", 1 << 27),
+    ("transformer", "transformer", 1 << 27),
+    ("citeseer", "citeseer", 1 << 27),
     ("citeseer_683", "citeseer", 1 << 19),
 )
-BLOCK = 128  # execute_schedule's default block
+N_QUEUE = 9
+BLOCK = 128  # the executors' default block
 
 REPLACES = {
     "spmm_sparse": ("src/repro_torch/kernels/csrc/spmm.cu",
@@ -83,7 +103,15 @@ REPLACES = {
                         "src/repro/kernels/spgemm_outer.py:45"),
     "outer_sparse": ("src/repro_torch/kernels/csrc/spgemm_outer.cu",
                      "src/repro/kernels/spgemm_outer.py:96"),
+    "gemm": ("src/repro_torch/kernels/csrc/gemm.cu",
+             "src/repro/kernels/gemm.py:19"),
+    "inner_sparse": ("src/repro_torch/kernels/csrc/spgemm_inner.cu",
+                     "src/repro/kernels/spgemm_inner.py:114"),
+    "inner_reference": ("src/repro_torch/kernels/csrc/spgemm_inner.cu",
+                        "src/repro/kernels/spgemm_inner.py:49"),
 }
+COUNTERS = (spmm_mod.launches, outer_mod.launches, gemm_mod.launches,
+            inner_mod.launches)
 
 
 def log(msg: str) -> None:
@@ -92,9 +120,15 @@ def log(msg: str) -> None:
 
 def time_ms(fn, reps: int) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after one
-    warm-up run."""
+    warm-up run; a call whose warm-up took over 100 ms is timed once."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     fn()
-    torch.cuda.synchronize()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) > 100.0:
+        reps = 1
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -151,13 +185,14 @@ def profile_run(fn, top: int = 6) -> dict:
 
 class KernelCase:
     """One kernel call at fixed operands: the kernel, its plain version,
-    the library yardstick, and the work the data needs."""
+    the library yardstick, and the work the data needs. ``other`` is
+    ``(name, call)`` of the body "auto" did not pick, or None."""
 
     def __init__(self, body, label, kernel, plain, library,
                  in_bytes, out_bytes, flops, dtype, other=None):
         self.body, self.label = body, label
         self.kernel, self.plain, self.library = kernel, plain, library
-        self.other = other  # (name, call) of the body "auto" did not pick
+        self.other = other
         self.bound_ms, self.bound_by = bound(in_bytes + out_bytes, flops)
         self.dtype = dtype
 
@@ -243,34 +278,102 @@ def outer_case(label, ap, bp, bm, bn, method="auto"):
                                               method=other)))
 
 
-def partition_cases(label, a_d, b_d, schedule):
-    """The kernel calls the executor makes for ``schedule``, built through
-    the executor's own preparation and the ops layer's padding."""
-    parts = [p for p in schedule.partitions if not p.region.empty]
+def gemm_case(label, ap, bp, dims=None):
+    """``ap @ bp``; the bound counts the work of the ``dims = (m, k, n)``
+    the data has (default: the operands' own), not the zero padding the
+    ops layer adds to match the JAX package's launch shapes."""
+    m, k, n = dims or (*ap.shape, bp.shape[1])
+    size = ap.element_size()
+    return KernelCase(
+        "gemm", label,
+        kernel=lambda: gemm_mod.gemm(ap, bp),
+        plain=lambda: gemm_mod.gemm_plain(ap, bp),
+        library=lambda: torch.matmul(ap, bp),
+        in_bytes=(m * k + k * n) * size, out_bytes=m * n * size,
+        flops=2.0 * m * k * n, dtype=ap.dtype)
+
+
+def inner_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto"):
+    (m, k), n = ap.shape, bp.shape[1]
+    chosen = inner_mod.resolve_method(method, k, ap.cap)
+    other = "reference" if chosen == "sparse" else "sparse"
+    a_dense = ell.ell_to_dense(ap)
+    b_dense = ell.ell_to_dense(bp)
+    # The products the data needs: a pair per K coordinate both hold.
+    per_k = [torch.bincount(e.ids[e.ids >= 0].long(), minlength=k).double()
+             for e in (ap, bp)]
+    pairs = float((per_k[0] * per_k[1]).sum())
+    return KernelCase(
+        "inner_" + chosen, label,
+        kernel=lambda: inner_mod.spgemm_inner(ap, bp, bm=bm, bn=bn, bk=bk,
+                                              method=chosen),
+        plain=lambda: inner_mod.spgemm_inner_plain(ap, bp),
+        library=lambda: torch.matmul(a_dense, b_dense),
+        in_bytes=nbytes(ap.vals, ap.ids, bp.vals, bp.ids),
+        out_bytes=m * n * ap.vals.element_size(),
+        flops=2.0 * pairs, dtype=ap.vals.dtype,
+        other=("inner_" + other,
+               lambda: inner_mod.spgemm_inner(ap, bp, bm=bm, bn=bn, bk=bk,
+                                              method=other)))
+
+
+def region_tag(label, p):
+    r = p.region
+    return (f"{label} [{r.m0}:{r.m1},{r.k0}:{r.k1},{r.n0}:{r.n1}] "
+            f"{p.cls.value}{' mirror' if p.mirror else ''}")
+
+
+def launch_key(cls, *operands):
+    """What fixes a kernel launch: the class, and each operand's shape and,
+    for a fiber operand, its capacity (block sizes are the executor's)."""
+    return (cls,) + tuple(
+        (tuple(x.shape), x.cap) if isinstance(x, ell.EllMatrix)
+        else tuple(x.shape) if isinstance(x, torch.Tensor) else x
+        for x in operands)
+
+
+def partition_cases(label, a_d, b_d, partitions, seen):
+    """The kernel calls the executor makes for ``partitions``, built
+    through the executor's own preparation and the ops layer's padding;
+    a launch whose :func:`launch_key` is in ``seen`` is left out."""
+    parts = [p for p in partitions if not p.region.empty]
     cases = []
     for p, sa, sb, caps in hm.prepare_partitions([(a_d, b_d, parts)])[0]:
         pa, pb = hm._prep_operands(p.cls, sa, sb, p.mirror, caps)
-        r = p.region
-        tag = (f"{label} [{r.m0}:{r.m1},{r.k0}:{r.k1},{r.n0}:{r.n1}] "
-               f"{p.cls.value}{' mirror' if p.mirror else ''}")
-        if p.cls == DataflowClass.SPMM:
-            operands = (ops.spmm_mirror_operands if p.mirror
-                        else ops.spmm_operands)
-            ap, bp, bn = operands(pa, pb, bm=BLOCK, bn=BLOCK)
-            cases.append(spmm_case(tag, ap, bp, bn))
+        tag = region_tag(label, p)
+        if p.cls == DataflowClass.GEMM:
+            operands = ops.gemm_operands(pa, pb, bm=BLOCK, bn=BLOCK,
+                                         bk=BLOCK)
+            make = lambda: gemm_case(tag, *operands,  # noqa: E731
+                                     dims=(*pa.shape, pb.shape[1]))
+        elif p.cls == DataflowClass.SPMM:
+            prep = (ops.spmm_mirror_operands if p.mirror
+                    else ops.spmm_operands)
+            operands = prep(pa, pb, bm=BLOCK, bn=BLOCK)
+            make = lambda: spmm_case(tag, *operands)  # noqa: E731
+        elif p.cls == DataflowClass.SPGEMM_INNER:
+            operands = ops.spgemm_inner_operands(pa, pb, bm=BLOCK, bn=BLOCK,
+                                                 bk=BLOCK)
+            make = lambda: inner_case(tag, *operands)  # noqa: E731
         elif p.cls == DataflowClass.SPGEMM_OUTER:
-            ap, bp, bm, bn = ops.spgemm_outer_operands(
-                pa, pb, bm=BLOCK, bn=BLOCK, bk=BLOCK)
-            cases.append(outer_case(tag, ap, bp, bm, bn))
+            operands = ops.spgemm_outer_operands(pa, pb, bm=BLOCK, bn=BLOCK,
+                                                 bk=BLOCK)
+            make = lambda: outer_case(tag, *operands)  # noqa: E731
         else:
             raise AssertionError(f"{tag}: class not ported")
+        key = launch_key(p.cls, *operands)
+        if key not in seen:
+            seen.add(key)
+            cases.append(make())
     return cases
 
 
 def edge_cases():
-    """Small operands built to hit the kernels' edges: an all-zero fiber
-    block (SpMM) or M window (outer), a fiber at exactly its capacity, and
-    bfloat16 values."""
+    """Small operands built to hit the kernels' edges, in float32 and
+    bfloat16: an all-zero fiber block (SpMM, inner) or window (outer), an
+    all-zero A block (inner), a fiber at exactly its capacity, K tiles live
+    on one side only (inner), ragged GEMM dims, and both bodies of each
+    sparse kernel forced on one operand pair."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def sparse(r, c, density):
@@ -280,6 +383,13 @@ def edge_cases():
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
+        # GEMM: ragged through the ops padding, and ragged into the kernel
+        # itself (its tiles mask the edges).
+        a = sparse(200, 300, 1.0).to(dtype)
+        b = sparse(300, 130, 1.0).to(dtype)
+        cases.append(gemm_case(f"edge {name} padded",
+                               *ops.gemm_operands(a, b), dims=(200, 300, 130)))
+        cases.append(gemm_case(f"edge {name} ragged 200x300x130", a, b))
         # SpMM: B columns 128..255 empty (a dead fiber block at bn=128);
         # column 3 holds exactly cap=16 nonzeros, the most of any column.
         a = sparse(200, 300, 1.0).to(dtype)
@@ -291,6 +401,37 @@ def edge_cases():
         for method in ("sparse", "reference"):
             ap, bp, bn = ops.spmm_operands(a, b_ell, bm=128, bn=128)
             cases.append(spmm_case(f"edge {name}", ap, bp, bn, method))
+        # Inner: A rows 128..255 empty (a dead M block); A's k[0:128] empty
+        # for rows 0..127 while B holds entries there, and B's k[256:384]
+        # empty while A holds entries there (one side live); B columns
+        # 128..255 empty (a dead N block); row 5 of A at exactly cap=32.
+        a = sparse(300, 384, 0.03)
+        a[128:256, :] = 0
+        a[:128, :128] = 0
+        a[5, :] = 0
+        a[5, torch.arange(128, 384, 8)] = -1.25
+        b = sparse(384, 384, 0.05)
+        b[256:, :] = 0
+        b[:, 128:256] = 0
+        a_ell = ell.dense_to_ell(a.to(dtype), 0, 32, strict=True)
+        b_ell = ell.dense_to_ell(b.to(dtype), 1,
+                                 int((b != 0).sum(0).max()), strict=True)
+        for method in ("sparse", "reference"):
+            ap, bp, bm, bn = ops.spgemm_inner_operands(a_ell, b_ell, bm=128,
+                                                       bn=128)
+            cases.append(inner_case(f"edge {name}", ap, bp, bm, bn,
+                                    method=method))
+        # The same pair with each fiber's live slots shuffled (ids out of
+        # order, PAD slots still last): both bodies must still agree.
+        shuffled = [ell.EllMatrix(e.vals.gather(1, perm), e.ids.gather(1, perm),
+                                  e.lens, e.shape, e.major_axis)
+                    for e in (ap, bp)
+                    for perm in [(torch.rand(e.ids.shape, device="cuda",
+                                             generator=gen)
+                                  + 2.0 * (e.ids < 0)).argsort(dim=1)]]
+        for method in ("sparse", "reference"):
+            cases.append(inner_case(f"edge {name} shuffled", *shuffled, bm,
+                                    bn, method=method))
         # Outer: A's M window 128..255 empty; fiber 5 of A exactly at cap.
         a = sparse(384, 260, 0.01)
         a[128:256, :] = 0
@@ -308,6 +449,70 @@ def edge_cases():
     return cases
 
 
+def check_product(label, out, a_d, b_d) -> float:
+    """Shape, finiteness and relative error against a float64 product on
+    the card; raises on a failure, returns the relative error."""
+    if tuple(out.shape) != (a_d.shape[0], b_d.shape[1]) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: bad output {tuple(out.shape)}")
+    ref = a_d.double() @ b_d.double()
+    rel = float((out.double() - ref).abs().max()
+                / ref.abs().max().clamp_min(1e-30))
+    if rel > TOL["float32"]:
+        raise AssertionError(f"{label}: relative error {rel:.3e} against "
+                             "the float64 product")
+    return rel
+
+
+def counts():
+    return {k: v for c in COUNTERS for k, v in c.items()}
+
+
+def reset_counts():
+    for c in COUNTERS:
+        for key in c:
+            c[key] = 0
+
+
+def placement(a):
+    return ", ".join(f"{pp.partition.cls.value}"
+                     f"{' mirror' if pp.partition.mirror else ''}"
+                     f" k[{pp.partition.region.k0}:{pp.partition.region.k1}]"
+                     f" on {pp.partition.cluster}" for pp in a.placed)
+
+
+def run_queue(label, run):
+    """Run a many-kernel call, timing it on the host clock (ending in a
+    synchronize), check every task against float64, and return its
+    schedule."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs, ms, pairs = run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    rels = {}
+    for asg in ms.assignments:
+        a_d, b_d = pairs[asg.task_index]
+        tag = f"{label} task {asg.task_index} {asg.workload.name}"
+        rels[asg.task_index] = check_product(tag, outs[asg.task_index],
+                                             a_d, b_d)
+        log(f"many {tag} {asg.workload.m}x{asg.workload.k}x{asg.workload.n}"
+            f": {placement(asg)}, rel err {rels[asg.task_index]:.3e}")
+    log(f"many {label}: wall {wall_ms:.3f} ms for {len(pairs)} tasks, "
+        f"modelled makespan {ms.makespan_cycles:.0f} cycles, worst rel err "
+        f"{max(rels.values()):.3e}")
+    return ms
+
+
+def measured_workload(name, a_d, b_d):
+    """The workload ``hetero_many_matmul`` builds for ``(a_d, b_d)``: true
+    shapes and exact densities."""
+    (m, k), n = a_d.shape, b_d.shape[1]
+    nnz = [int(torch.count_nonzero(x)) for x in (a_d, b_d)]
+    return Workload(name, "api", m, k, n, nnz[0] / a_d.numel(),
+                    nnz[1] / b_d.numel())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -316,7 +521,6 @@ def main() -> int:
     if not Path(repro_torch.__file__).resolve().is_relative_to(ROOT):
         raise RuntimeError(f"repro_torch imported from {repro_torch.__file__}"
                            f", not from this checkout ({ROOT})")
-    counters = (spmm_mod.launches, outer_mod.launches)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -334,7 +538,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    # Operands and schedules of the main path, made once from seed 0.
+    # Operands and schedules of the main paths, made once from seed 0.
     config = dse.aespa_equal4()
     runs = []
     for label, wname, max_elems in MAIN_PATH:
@@ -344,61 +548,93 @@ def main() -> int:
         runs.append((label, w, torch.from_numpy(a).cuda(),
                      torch.from_numpy(b).cuda(),
                      scheduler.schedule_single_kernel(config, w)))
+    queue = runs[:N_QUEUE]
+    queue_pairs = [(a_d, b_d) for _, _, a_d, b_d, _ in queue]
+    queue_runs = [(policy, scheduler.schedule_many_kernels(
+        config, [r[1] for r in queue], policy=policy))
+        for policy in ("lpt", "sjf", "affinity")]
+    dense = [r for r in queue if r[0] == "synthetic_dense"][0]
+    twice = [(dense[2], dense[3])] * 2
+    optimized = scheduler.schedule_many_kernels(
+        config, [measured_workload(f"task{i}", *ab)
+                 for i, ab in enumerate(twice)], policy="optimized")
 
     # ---- phase 2: each kernel against its plain version ----------------
+    # Every launch shape of phases 3 and 3c, each once.
     t0 = time.perf_counter()
-    rows = []
-    for label, w, a_d, b_d, schedule in runs:
-        for case in partition_cases(label, a_d, b_d, schedule):
+    rows, seen = [], set()
+    launch_sets = [(label, a_d, b_d, schedule.partitions)
+                   for label, w, a_d, b_d, schedule in runs]
+    for policy, ms, pairs in ([(p, ms, queue_pairs) for p, ms in queue_runs]
+                              + [("optimized", optimized, twice)]):
+        launch_sets += [(f"{policy} {asg.workload.name}",
+                         *pairs[asg.task_index],
+                         [pp.partition for pp in asg.placed])
+                        for asg in ms.assignments]
+    for label, a_d, b_d, partitions in launch_sets:
+        for case in partition_cases(label, a_d, b_d, partitions, seen):
             rows.append(case.check(reps=5))
         torch.cuda.empty_cache()
     for case in edge_cases():
         case.check()
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
 
-    # ---- phase 3: the main path ----------------------------------------
+    # ---- phase 3: the single-kernel path --------------------------------
     t0 = time.perf_counter()
-    for counts in counters:
-        for key in counts:
-            counts[key] = 0
+    reset_counts()
     for label, w, a_d, b_d, schedule in runs:
-        before = {k: v for c in counters for k, v in c.items()}
+        before = counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = hm.execute_schedule(a_d, b_d, schedule)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
-        bodies = {k: v - before[k] for c in counters for k, v in c.items()
+        bodies = {k: v - before[k] for k, v in counts().items()
                   if v != before[k]}
-        ref = a_d.double() @ b_d.double()
-        rel = float((out.double() - ref).abs().max()
-                    / ref.abs().max().clamp_min(1e-30))
-        parts = [f"[{p.region.m0}:{p.region.m1},{p.region.k0}:{p.region.k1},"
-                 f"{p.region.n0}:{p.region.n1}] {p.cls.value}"
-                 f"{' mirror' if p.mirror else ''}"
-                 for p in schedule.partitions]
+        rel = check_product(label, out, a_d, b_d)
+        parts = [region_tag("", p).strip() for p in schedule.partitions]
         log(f"main {label} {w.m}x{w.k}x{w.n}: partitions {parts}, bodies "
             f"{bodies}, wall {wall_ms:.3f} ms, rel err {rel:.3e}")
-        if tuple(out.shape) != (w.m, w.n) or not bool(
-                torch.isfinite(out).all()):
-            raise AssertionError(f"{label}: bad output {tuple(out.shape)}")
-        if rel > TOL["float32"]:
-            raise AssertionError(f"{label}: relative error {rel:.3e} against "
-                                 "the float64 product")
-        del out, ref
+        del out
         torch.cuda.empty_cache()
-    launches = {k: v for c in counters for k, v in c.items()}
-    log(f"phase 3 main path: {time.perf_counter() - t0:.1f} s, "
-        f"launches {launches}")
+    single_launches = counts()
+    log(f"phase 3 single-kernel path: {time.perf_counter() - t0:.1f} s, "
+        f"launches {single_launches}")
 
-    # ---- phase 3b: where the main path's time goes ----------------------
+    # ---- phase 3b: where the single-kernel path's time goes -------------
     t0 = time.perf_counter()
     for label, w, a_d, b_d, schedule in runs:
         log(f"profile {label}: " + json.dumps(
             profile_run(lambda: hm.execute_schedule(a_d, b_d, schedule))))
     log(f"phase 3b profile: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 3c: the many-kernel path ---------------------------------
+    t0 = time.perf_counter()
+    reset_counts()
+    for policy, ms in queue_runs:
+        run_queue(policy, lambda: (hm.execute_many_kernel_schedule(
+            queue_pairs, ms), ms, queue_pairs))
+    got = run_queue("optimized synthetic_dense x2", lambda: (
+        *hm.hetero_many_matmul(twice, config, policy="optimized"), twice))
+    many_launches = counts()
+    if [a.placed for a in got.assignments] != [
+            a.placed for a in optimized.assignments]:
+        raise AssertionError("hetero_many_matmul placed the queue otherwise "
+                             "than the schedule phase 2 checked")
+    log(f"phase 3c many-kernel path: {time.perf_counter() - t0:.1f} s, "
+        f"launches {many_launches}")
+    t0 = time.perf_counter()
+    for policy, ms in queue_runs:
+        log(f"profile {policy} queue: " + json.dumps(profile_run(
+            lambda: hm.execute_many_kernel_schedule(queue_pairs, ms),
+            top=8)))
+    log("profile optimized synthetic_dense x2: " + json.dumps(profile_run(
+        lambda: hm.hetero_many_matmul(twice, config, policy="optimized"),
+        top=8)))
+    log(f"phase 3c profile: {time.perf_counter() - t0:.1f} s")
+
     # ---- phase 4: the kernels line ---------------------------------------
+    launches = {k: single_launches[k] + many_launches[k] for k in REPLACES}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]

@@ -1,3 +1,3 @@
 """AESPA core on PyTorch: the cost model, hardware database, workloads and
-single-kernel scheduler (numpy, copied from ``repro.core``) and the
-executor that runs a schedule on the card."""
+the single- and many-kernel schedulers (numpy, copied from ``repro.core``)
+and the executors that run their schedules on the card."""

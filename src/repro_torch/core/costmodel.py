@@ -1,6 +1,6 @@
 """Analytical performance/energy model (paper §VI), the part of
-``repro.core.costmodel`` that single-kernel scheduling reads, copied so the
-port carries no dependency on the JAX package.
+``repro.core.costmodel`` that single- and many-kernel scheduling read,
+copied so the port carries no dependency on the JAX package.
 
 Approximates each kernel's runtime by the tripcount of the compute loop of
 its TACO kernel (Fig 2), divided by the usable PEs (bounded by the class's
@@ -463,3 +463,142 @@ def geomean(xs: Sequence[float]) -> float:
     accumulation, as the JAX package's batched evaluator reproduces it)."""
     xs = [max(x, 1e-30) for x in xs]
     return math.exp(sum(math.log(x) for x in xs) / len(xs))
+
+
+# -------------------------------------------------------------- queueing
+@dataclasses.dataclass(frozen=True)
+class QueueStats:
+    """Multi-tenant queueing/utilization aggregates of a many-kernel
+    schedule (paper §V-B, Fig 12): how busy each cluster's queue kept it
+    over the makespan, how long tasks waited past their arrival (with tail
+    percentiles), live queue depth, and deadline accounting when the caller
+    supplies deadlines. The fields are the JAX package's, so the two
+    serialise to the same ``to_json``."""
+
+    busy_cycles: Tuple[float, ...]       # per cluster, Σ assigned cycles
+    busy_fraction: Tuple[float, ...]     # busy_cycles / makespan
+    utilization: float                   # PE-weighted mean busy fraction
+    mean_wait_cycles: float              # mean(start - arrival) over tasks
+    max_wait_cycles: float
+    mean_turnaround_cycles: float        # mean(finish - arrival) over tasks
+    #: Clusters run their queues concurrently, so the schedule drains in
+    #: ``concurrent_makespan_cycles`` (max over cluster finish times);
+    #: serialising every cluster queue onto one device takes
+    #: ``sequential_makespan_cycles`` (Σ busy cycles over clusters).
+    concurrent_makespan_cycles: float = 0.0
+    sequential_makespan_cycles: float = 0.0
+    n_tasks: int = 0
+    p50_wait_cycles: float = 0.0
+    p90_wait_cycles: float = 0.0
+    p99_wait_cycles: float = 0.0
+    p50_turnaround_cycles: float = 0.0
+    p99_turnaround_cycles: float = 0.0
+    queue_depth: int = 0                 # offered-not-started at snapshot
+    deadline_total: int = 0              # tasks that carried a deadline
+    deadline_misses: int = 0             # finish > deadline among those
+    worst_lateness_cycles: float = 0.0   # max(finish - deadline, 0)
+    #: Measured twin of the concurrency pair, filled by an executor that
+    #: times each cluster's span (the stream executor, not ported yet);
+    #: empty/zero when the run was not measured.
+    measured_busy_s: Tuple[float, ...] = ()     # per cluster, Σ span busy
+    measured_makespan_s: float = 0.0            # wall first-dispatch→last-done
+    measured_sequential_s: float = 0.0          # Σ measured_busy_s
+
+    @property
+    def spatial_speedup(self) -> float:
+        """Sequential / concurrent makespan: the speedup spatial cluster
+        concurrency buys over one-device serialisation."""
+        return (self.sequential_makespan_cycles
+                / max(self.concurrent_makespan_cycles, 1e-12))
+
+    @property
+    def measured_spatial_speedup(self) -> float:
+        """Observed sequential / observed wall makespan; 0.0 when the run
+        carried no measurements."""
+        if self.measured_makespan_s <= 0.0:
+            return 0.0
+        return self.measured_sequential_s / self.measured_makespan_s
+
+    def to_json(self) -> Dict:
+        d = dataclasses.asdict(self)
+        d["spatial_speedup"] = self.spatial_speedup
+        d["measured_spatial_speedup"] = self.measured_spatial_speedup
+        return d
+
+
+def percentile(xs: Sequence[float], q: float) -> float:
+    """Linear-interpolated percentile (numpy's default method), 0.0 on an
+    empty sequence. ``q`` in [0, 100]."""
+    if not xs:
+        return 0.0
+    s = sorted(float(x) for x in xs)
+    if len(s) == 1:
+        return s[0]
+    pos = (len(s) - 1) * (q / 100.0)
+    lo = int(math.floor(pos))
+    hi = min(lo + 1, len(s) - 1)
+    return s[lo] + (s[hi] - s[lo]) * (pos - lo)
+
+
+def cycles_to_us(cycles: float) -> float:
+    """Modelled cycles → microseconds at ``hwdb.FREQ_HZ`` (1 GHz ⇒ 1000
+    cycles = 1 µs)."""
+    return float(cycles) / (hwdb.FREQ_HZ / 1e6)
+
+
+def queue_stats(config: AcceleratorConfig,
+                busy_cycles: Sequence[float],
+                wait_cycles: Sequence[float],
+                turnaround_cycles: Sequence[float],
+                makespan_cycles: float,
+                *,
+                queue_depth: int = 0,
+                finish_cycles: Optional[Sequence[float]] = None,
+                deadline_cycles: Optional[Sequence[Optional[float]]] = None,
+                ) -> QueueStats:
+    """Aggregate per-cluster busy time and per-task waits into the
+    utilization report attached to every many-kernel schedule.
+
+    ``finish_cycles``/``deadline_cycles`` (parallel sequences; deadline
+    entries may be ``None`` for best-effort tasks) enable the deadline
+    fields."""
+    span = max(makespan_cycles, 1e-12)
+    frac = tuple(b / span for b in busy_cycles)
+    total_pes = max(sum(c.pes for c in config.clusters), 1)
+    util = sum(f * c.pes for f, c in zip(frac, config.clusters)) / total_pes
+    n = max(len(wait_cycles), 1)
+    deadline_total = deadline_misses = 0
+    worst_late = 0.0
+    if deadline_cycles is not None:
+        if finish_cycles is None or len(finish_cycles) != len(deadline_cycles):
+            raise ValueError(
+                "deadline accounting needs finish_cycles parallel to "
+                "deadline_cycles")
+        for fin, dl in zip(finish_cycles, deadline_cycles):
+            if dl is None:
+                continue
+            deadline_total += 1
+            late = fin - dl
+            if late > 1e-9:
+                deadline_misses += 1
+                worst_late = max(worst_late, late)
+    return QueueStats(
+        busy_cycles=tuple(float(b) for b in busy_cycles),
+        busy_fraction=frac,
+        utilization=util,
+        mean_wait_cycles=sum(wait_cycles) / n,
+        max_wait_cycles=max(wait_cycles, default=0.0),
+        mean_turnaround_cycles=sum(turnaround_cycles) / n,
+        concurrent_makespan_cycles=float(makespan_cycles),
+        sequential_makespan_cycles=float(sum(busy_cycles)),
+        n_tasks=len(wait_cycles),
+        p50_wait_cycles=percentile(wait_cycles, 50.0),
+        p90_wait_cycles=percentile(wait_cycles, 90.0),
+        p99_wait_cycles=percentile(wait_cycles, 99.0),
+        p50_turnaround_cycles=percentile(turnaround_cycles, 50.0),
+        p99_turnaround_cycles=percentile(turnaround_cycles, 99.0),
+        queue_depth=int(queue_depth),
+        deadline_total=deadline_total,
+        deadline_misses=deadline_misses,
+        worst_lateness_cycles=worst_late,
+    )

@@ -1,7 +1,12 @@
 """Heterogeneous matmul executor — the port of
 ``repro.core.hetero_matmul``: runs a :class:`KernelSchedule` numerically by
 dispatching each partition to its dataflow-class kernel and merging the
-partial outputs (paper §V-A: K-split partials are reduced at the end).
+partial outputs (paper §V-A: K-split partials are reduced at the end), and
+runs many-kernel schedules task by task through the same path
+(:func:`execute_assignments`, :func:`execute_many_kernel_schedule`,
+:func:`hetero_many_matmul`). Only the sequential path is ported: the JAX
+package's sharded and pipelined options (``mesh``, ``pipeline_depth``,
+``shard_operands``) wait for the stream executor (ROADMAP.md).
 
 Operands arrive dense (the host knows the true densities and prepares the
 formats, the paper's §VI assumption). Execution stays on the device:
@@ -12,10 +17,18 @@ capacities are power-of-two bucketed as on the JAX side.
 """
 from __future__ import annotations
 
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch.core import costmodel as cm
-from repro_torch.core.scheduler import KernelSchedule, schedule_single_kernel
+from repro_torch.core.scheduler import (
+    KernelSchedule,
+    ManyKernelSchedule,
+    schedule_many_kernels,
+    schedule_single_kernel,
+)
 from repro_torch.core.workloads import Workload
 from repro_torch.formats.ell import bucket_capacity, dense_to_ell
 from repro_torch.formats.taxonomy import DataflowClass
@@ -64,14 +77,20 @@ def _prep_operands(cls: DataflowClass, a, b, mirror: bool, caps):
 
 def _dispatch_partition(cls: DataflowClass, a, b, mirror: bool, block: int,
                         device):
-    sized = dict(bm=block, bn=block, device=device)
+    sized = dict(bm=block, bn=block, bk=block, device=device)
+    if cls == DataflowClass.GEMM:
+        return ops.gemm(a, b, **sized)
     if cls == DataflowClass.SPMM:
         if mirror:
-            return ops.spmm_mirror(a, b, **sized)
-        return ops.spmm(a, b, **sized)
+            return ops.spmm_mirror(a, b, bm=block, bn=block, device=device)
+        return ops.spmm(a, b, bm=block, bn=block, device=device)
+    if cls == DataflowClass.SPGEMM_INNER:
+        return ops.spgemm_inner(a, b, **sized)
     if cls == DataflowClass.SPGEMM_OUTER:
-        return ops.spgemm_outer(a, b, bk=block, **sized)
-    return ops.dispatch(cls, a, b, bk=block, **sized)
+        return ops.spgemm_outer(a, b, **sized)
+    if cls == DataflowClass.SPGEMM_GUSTAVSON:
+        return ops.spgemm_gustavson(a, b, **sized)
+    raise ValueError(cls)
 
 
 def prepare_partitions(jobs):
@@ -177,3 +196,115 @@ def hetero_matmul(a, b, config: cm.AcceleratorConfig, block: int = 128,
     schedule = schedule_single_kernel(config, w)
     return execute_schedule(a_d, b_d, schedule, block=block,
                             device=dev), schedule
+
+
+def _validated_jobs(assignments, operands_by_index):
+    """Pair each assignment with its operands, checking shapes against the
+    scheduled dims without copying the operands anywhere."""
+    jobs = []
+    for asg in assignments:
+        idx = asg.task_index
+        w = asg.workload
+        if idx not in operands_by_index:
+            raise ValueError(f"task {idx} ({w.name}): no operands supplied")
+        a_d, b_d = operands_by_index[idx]
+        if (tuple(np.shape(a_d)) != (w.m, w.k)
+                or tuple(np.shape(b_d)) != (w.k, w.n)):
+            raise ValueError(
+                f"task {idx} ({w.name}): operands "
+                f"{tuple(np.shape(a_d))}x{tuple(np.shape(b_d))} "
+                f"don't match scheduled dims {(w.m, w.k)}x{(w.k, w.n)}")
+        if not asg.placed:
+            raise ValueError(
+                f"task {idx} ({w.name}) has no placement timeline; "
+                "build schedules via schedule_many_kernels")
+        jobs.append((asg, a_d, b_d))
+    return jobs
+
+
+def execute_assignments(assignments, operands_by_index,
+                        config: cm.AcceleratorConfig, block: int = 128,
+                        device=None):
+    """Numerically run a batch of :class:`TaskAssignment` placements.
+
+    ``operands_by_index`` maps ``task_index`` -> dense ``(a, b)``; every
+    assignment runs through :func:`execute_schedule` on its placed
+    partitions (including multi-cluster splits with K-partial merging),
+    one task after another on one device. Returns ``{task_index:
+    output}``. ``device=None`` runs on the card and raises without one.
+    """
+    dev = ops.resolve_device(device)
+    outs = {}
+    for asg, a_d, b_d in _validated_jobs(assignments, operands_by_index):
+        parts = tuple(pp.partition for pp in asg.placed)
+        ks = KernelSchedule(asg.workload, config, parts, asg.report)
+        outs[asg.task_index] = execute_schedule(a_d, b_d, ks, block=block,
+                                                device=dev)
+    return outs
+
+
+def execute_many_kernel_schedule(
+    operands: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    schedule: ManyKernelSchedule,
+    block: int = 128,
+    device=None,
+) -> List[torch.Tensor]:
+    """Numerically run a many-kernel (multi-tenant) schedule.
+
+    ``operands[i]`` is the dense ``(a, b)`` pair of the i-th task of the
+    queue given to :func:`schedule_many_kernels`; shapes must match that
+    task's workload. Every assignment runs on its cluster's (class,
+    orientation) pair, including per-partition dispatch and K-split merging
+    for tasks the ``optimized`` policy split. Returns per-task outputs in
+    queue order.
+    """
+    operands = list(operands)
+    if len(operands) != len(schedule.assignments):
+        raise ValueError(
+            f"{len(operands)} operand pairs for "
+            f"{len(schedule.assignments)} scheduled tasks")
+    # Assignments are in priority order, not queue order: the task_index
+    # mapping must be a full permutation or operands would silently pair
+    # with the wrong (same-shaped) tasks.
+    indices = sorted(a.task_index for a in schedule.assignments)
+    if indices != list(range(len(operands))):
+        raise ValueError(
+            "schedule assignments lack a complete task_index permutation "
+            f"(got {indices}); build schedules via schedule_many_kernels")
+    outs = execute_assignments(schedule.assignments, dict(enumerate(operands)),
+                               schedule.config, block=block, device=device)
+    return [outs[i] for i in range(len(operands))]
+
+
+def hetero_many_matmul(
+    pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    config: cm.AcceleratorConfig,
+    policy: str = "lpt",
+    arrivals: Optional[Sequence[float]] = None,
+    block: int = 128,
+    device=None,
+):
+    """Schedule + execute a queue of matmuls on a heterogeneous accelerator.
+
+    Builds one :class:`Workload` per ``(a, b)`` pair (true shapes and exact
+    densities, one host sync for all of them), list-schedules the queue
+    under ``policy``, and runs every assignment. Returns ``(outputs,
+    schedule)``.
+    """
+    dev = ops.resolve_device(device)
+    dense = [(torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev))
+             for a, b in pairs]
+    nnz = (torch.stack([torch.count_nonzero(x) for ab in dense for x in ab])
+           .tolist() if dense else [])
+    tasks = []
+    for i, (a, b) in enumerate(dense):
+        m, k = a.shape
+        k2, n = b.shape
+        assert k == k2, (a.shape, b.shape)
+        d_mk = nnz[2 * i] / a.numel() if a.numel() else 0.0
+        d_kn = nnz[2 * i + 1] / b.numel() if b.numel() else 0.0
+        tasks.append(Workload(f"task{i}", "api", m, k, n, d_mk, d_kn))
+    ms = schedule_many_kernels(config, tasks, policy=policy,
+                               arrivals=arrivals)
+    outs = execute_many_kernel_schedule(dense, ms, block=block, device=dev)
+    return outs, ms

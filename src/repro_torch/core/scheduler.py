@@ -6,8 +6,13 @@ dependency on the JAX package.
 regions of different compression formats, one per sub-accelerator cluster,
 to maximise TFLOP/s on a latency-critical kernel (Fig 6). The schedule it
 returns feeds both the analytical cost model and the numerical executor
-(``repro_torch.core.hetero_matmul.execute_schedule``). Many-kernel
-scheduling and its policies are not ported yet (ROADMAP.md).
+(``repro_torch.core.hetero_matmul.execute_schedule``).
+
+:func:`schedule_many_kernels` list-schedules a queue of independent kernels
+onto the clusters under a registered policy (``lpt``, ``sjf``,
+``affinity``, ``optimized``; paper §V-B, Fig 12) through the event-stepped
+:class:`OnlineScheduler`. The JAX package's trace hooks on the engine
+(``repro.obs``) are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -356,9 +361,10 @@ def _schedule_single_kernel_memo(config, w, fracs, refine):
 
 
 def clear_schedule_cache() -> None:
-    """Drop the memoized single-kernel schedules (tests and long-lived
-    servers call this between model changes)."""
+    """Drop the memoized single-kernel schedules and per-cluster bests
+    (tests and long-lived servers call this between model changes)."""
     _schedule_single_kernel_memo.cache_clear()
+    _best_on_cluster.cache_clear()
 
 
 def _schedule_single_kernel_impl(
@@ -400,3 +406,540 @@ def _schedule_single_kernel_impl(
 
     return KernelSchedule(w, config, best[2], best[3])
 
+
+# --------------------------------------------------------------- many-kernel
+@dataclasses.dataclass(frozen=True)
+class PlacedPartition:
+    """One partition of a (possibly split) task on a cluster's timeline."""
+
+    partition: Partition
+    start_cycles: float
+    cycles: float
+
+    @property
+    def finish_cycles(self) -> float:
+        return self.start_cycles + self.cycles
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskAssignment:
+    """Placement of one queued kernel.
+
+    ``placed`` carries the per-partition timeline; whole-kernel tasks have
+    exactly one entry covering the full M×K×N region, tasks split by the
+    ``optimized`` policy have one entry per cluster-resident partition.
+    The scalar fields (``cluster``/``cls``/``mirror``/``start``/``cycles``)
+    summarise the first partition and the wall-clock span of the task.
+    """
+
+    workload: Workload
+    cluster: int
+    cls: DataflowClass
+    mirror: bool
+    start_cycles: float
+    cycles: float
+    report: cm.KernelReport
+    task_index: int = -1            # position in the scheduled task queue
+    arrival_cycles: float = 0.0
+    placed: Tuple[PlacedPartition, ...] = ()
+
+    @property
+    def split(self) -> bool:
+        return len(self.placed) > 1
+
+    @property
+    def finish_cycles(self) -> float:
+        if self.placed:
+            return max(p.finish_cycles for p in self.placed)
+        return self.start_cycles + self.cycles
+
+    @property
+    def wait_cycles(self) -> float:
+        return self.start_cycles - self.arrival_cycles
+
+
+@dataclasses.dataclass(frozen=True)
+class ManyKernelSchedule:
+    config: cm.AcceleratorConfig
+    assignments: Tuple[TaskAssignment, ...]
+    makespan_cycles: float
+    total_bytes: float
+    energy_pj: float
+    policy: str = "lpt"
+    stats: Optional[cm.QueueStats] = None
+
+    @property
+    def makespan_s(self) -> float:
+        compute_s = self.makespan_cycles / hwdb.FREQ_HZ
+        mem_s = (0.0 if math.isinf(self.config.hbm_bw)
+                 else self.total_bytes / self.config.hbm_bw)
+        return max(compute_s, mem_s)
+
+
+@functools.lru_cache(maxsize=65536)
+def _best_on_cluster(cluster: cm.ClusterSpec, w: Workload,
+                     scratch_bytes: float = hwdb.SCRATCH_BYTES
+                     ) -> Tuple[float, DataflowClass, bool, cm.PartitionCost]:
+    """Fastest (class, orientation) for this kernel on this cluster.
+
+    Memoized (the arguments are frozen dataclasses plus the owning
+    config's scratchpad capacity, which reaches the reuse-aware traffic
+    model and so belongs in the cache key): list scheduling re-queries
+    every (cluster, task) pair once for LPT ordering and once per
+    placement round — the cache collapses those to one evaluation.
+    """
+    best = None
+    for cls in cluster.supported:
+        orients = (False, True) if cls == DataflowClass.SPMM else (False,)
+        for mirror in orients:
+            c = cm.partition_cost(cls, cluster, w.m, w.k, w.n,
+                                  w.d_mk, w.d_kn, mirror=mirror,
+                                  scratch_bytes=scratch_bytes)
+            if best is None or c.cycles < best[0]:
+                best = (c.cycles, cls, mirror, c)
+    assert best is not None
+    return best
+
+
+# ---------------------------------------------------------- policy registry
+class SchedulingPolicy:
+    """Greedy list scheduling with release times (the shared engine).
+
+    Subclasses pick the *priority* (which arrived task goes next) and the
+    *placement* (which cluster takes it). The engine is online: decisions
+    happen at cluster-free events, and only tasks whose ``arrival`` has
+    passed compete at each one — so the same policies serve the offline
+    Fig 12 sweep (all arrivals 0) and the multi-tenant queueing
+    simulation, and a late-arriving short job really can overtake queued
+    long ones under ``sjf``. The event loop itself lives in
+    :class:`OnlineScheduler`, so a serving runtime can step it
+    incrementally instead of re-planning the whole backlog per event.
+    """
+
+    name = "base"
+
+    def priority(self, w: Workload, idx: int, best_cycles: float):
+        """Sort key among arrived tasks — smallest schedules first."""
+        raise NotImplementedError
+
+    def eligible_clusters(self, config: cm.AcceleratorConfig, w: Workload):
+        """Clusters this policy would consider placing ``w`` on — the
+        engine defers a task until one of these is free, so queued tasks
+        compete by priority at the *relevant* cluster-free event."""
+        return range(len(config.clusters))
+
+    def place(self, config: cm.AcceleratorConfig, ready: List[float],
+              w: Workload, arrival: float):
+        """Pick a cluster: default = earliest finish time (list scheduling).
+
+        Returns ``(ci, start, cyc, cls, mirror, cost)``.
+        """
+        options = []
+        for ci, cluster in enumerate(config.clusters):
+            cyc, cls, mirror, cost = _best_on_cluster(
+                cluster, w, config.scratchpad_bytes)
+            start = max(ready[ci], arrival)
+            options.append((start + cyc, ci, start, cyc, cls, mirror, cost))
+        finish, ci, start, cyc, cls, mirror, cost = min(
+            options, key=lambda o: (o[0], o[1]))
+        return ci, start, cyc, cls, mirror, cost
+
+    def postprocess(self, config: cm.AcceleratorConfig,
+                    assignments: List[TaskAssignment],
+                    ready: List[float]
+                    ) -> Tuple[List[TaskAssignment], List[float]]:
+        """Whole-schedule rewrite hook, applied once the queue is drained
+        (offline) or the trace is complete (serving runtime). The base
+        policies place tasks greedily and leave the schedule alone; the
+        ``optimized`` policy rewrites the makespan straggler here."""
+        return assignments, ready
+
+    def schedule(self, config: cm.AcceleratorConfig,
+                 tasks: Sequence[Workload],
+                 arrivals: Optional[Sequence[float]] = None
+                 ) -> ManyKernelSchedule:
+        tasks = list(tasks)
+        arr = ([0.0] * len(tasks) if arrivals is None
+               else [float(a) for a in arrivals])
+        if len(arr) != len(tasks):
+            raise ValueError(f"{len(tasks)} tasks but {len(arr)} arrivals")
+        engine = OnlineScheduler(config, self)
+        for i, (w, a) in enumerate(zip(tasks, arr)):
+            engine.offer(w, arrival=a, index=i)
+        engine.drain()
+        return engine.finish()
+
+
+@dataclasses.dataclass
+class _QueuedTask:
+    """One offered-but-unplaced task in the engine backlog."""
+
+    index: int
+    workload: Workload
+    arrival: float
+    best_cycles: float
+
+
+class OnlineScheduler:
+    """Incremental, event-stepped list-scheduling engine.
+
+    The offline :meth:`SchedulingPolicy.schedule` and a serving runtime
+    (the JAX package's ``ClusterServer``; not ported yet) share this
+    engine:
+
+    * :meth:`offer` makes a task visible from ``arrival`` cycles on;
+    * :meth:`advance` processes arrival/cluster-free events with cursor
+      times strictly below ``until`` — placements already committed may
+      extend past it, but no new *decision* is taken at or after ``until``,
+      so tasks offered later (at ``until``) still compete at that event
+      exactly as the offline engine would have let them;
+    * :meth:`drain` runs the backlog to empty; :meth:`finish` applies the
+      policy's whole-schedule :meth:`~SchedulingPolicy.postprocess` and
+      wraps everything into a :class:`ManyKernelSchedule`.
+
+    Offering every task up front and draining reproduces the offline
+    schedule bit-for-bit (that is how ``schedule_many_kernels`` is now
+    implemented); the server instead interleaves bounded advances with
+    offers, so admission decisions see exactly the requests that have
+    arrived — without ever re-planning the committed backlog.
+    """
+
+    def __init__(self, config: cm.AcceleratorConfig,
+                 policy: "str | SchedulingPolicy" = "lpt",
+                 ready: Optional[Sequence[float]] = None):
+        self.config = config
+        self.policy = (policy if isinstance(policy, SchedulingPolicy)
+                       else get_policy(policy))
+        self.ready: List[float] = ([0.0] * len(config.clusters)
+                                   if ready is None else list(ready))
+        if len(self.ready) != len(config.clusters):
+            raise ValueError(
+                f"{len(self.ready)} ready entries for "
+                f"{len(config.clusters)} clusters")
+        self.now = 0.0
+        self.assignments: List[TaskAssignment] = []
+        self._backlog: List[_QueuedTask] = []
+        self._next_index = 0
+
+    @property
+    def backlog_depth(self) -> int:
+        """Offered tasks not yet placed on any cluster timeline."""
+        return len(self._backlog)
+
+    @property
+    def queue_depth(self) -> int:
+        """Tasks offered but not yet *started* at the cursor: the backlog
+        plus placements committed into the future (admission signal)."""
+        return len(self._backlog) + sum(
+            a.start_cycles > self.now for a in self.assignments)
+
+    def offer(self, w: Workload, arrival: float = 0.0,
+              index: Optional[int] = None) -> int:
+        """Make a task visible to the engine from ``arrival`` cycles on
+        (clamped to the cursor — the engine cannot revisit the past).
+        Returns the task index recorded in its eventual assignment."""
+        if index is None:
+            index = self._next_index
+        self._next_index = max(self._next_index, index + 1)
+        best = min(_best_on_cluster(c, w, self.config.scratchpad_bytes)[0]
+                   for c in self.config.clusters)
+        q = _QueuedTask(index, w, max(float(arrival), self.now), best)
+        self._backlog.append(q)
+        return index
+
+    def _place(self, q: _QueuedTask) -> TaskAssignment:
+        w = q.workload
+        ci, start, cyc, cls, mirror, cost = self.policy.place(
+            self.config, self.ready, w, q.arrival)
+        rep = cm.aggregate(self.config, {ci: cyc}, [cost])
+        whole = Region(0, w.m, 0, w.k, 0, w.n)
+        a = TaskAssignment(
+            w, ci, cls, mirror, start, cyc, rep,
+            task_index=q.index, arrival_cycles=q.arrival,
+            placed=(PlacedPartition(
+                Partition(whole, cls, ci, mirror), start, cyc),),
+        )
+        self.ready[ci] = start + cyc
+        self._backlog.remove(q)
+        self.assignments.append(a)
+        return a
+
+    def advance(self, until: Optional[float] = None
+                ) -> List[TaskAssignment]:
+        """Process events at cursor times strictly before ``until``
+        (``None`` = no bound); returns the assignments placed."""
+        placed: List[TaskAssignment] = []
+        backlog = self._backlog
+        ready = self.ready
+        policy = self.policy
+        config = self.config
+        # Policies that don't restrict placement eligibility (all but
+        # `affinity`) share one free time per event — hoist it out of the
+        # per-task eligibility probe (this loop is the DSE hot path).
+        base_eligible = (type(policy).eligible_clusters
+                         is SchedulingPolicy.eligible_clusters)
+
+        def eef(q: _QueuedTask) -> float:
+            return min(ready[c] for c in
+                       policy.eligible_clusters(config, q.workload))
+
+        now = self.now
+        while backlog:
+            if until is not None and now >= until:
+                break
+            arrived = [q for q in backlog if q.arrival <= now]
+            if not arrived:
+                nxt = min(q.arrival for q in backlog)
+                if until is not None and nxt >= until:
+                    break
+                now = nxt
+                continue
+            if base_eligible:
+                free = min(ready)
+                startable = arrived if free <= now else []
+            else:
+                startable = [q for q in arrived if eef(q) <= now]
+            if not startable:
+                # Every eligible cluster busy: defer the decision to the
+                # next eligible-cluster-free event (or next arrival, which
+                # may be startable sooner) so queued tasks compete by
+                # priority — committing at arrival would reduce every
+                # priority rule to FIFO.
+                nxt = min(([free] if base_eligible
+                           else [eef(q) for q in arrived])
+                          + [q.arrival for q in backlog if q.arrival > now])
+                if until is not None and nxt >= until:
+                    break
+                now = nxt
+                continue
+            q = min(startable, key=lambda x: policy.priority(
+                x.workload, x.index, x.best_cycles))
+            self.now = now
+            placed.append(self._place(q))
+        self.now = now if until is None else max(now, until)
+        return placed
+
+    def drain(self) -> List[TaskAssignment]:
+        """Run the backlog to empty (no time bound)."""
+        return self.advance(None)
+
+    def fork(self) -> "OnlineScheduler":
+        """Speculative copy sharing the (immutable) config/policy but
+        owning private timelines and backlog: drain the fork to look
+        ahead without committing anything to this engine (the fleet
+        launcher's fault-injection lookahead)."""
+        eng = OnlineScheduler(self.config, self.policy,
+                              ready=list(self.ready))
+        eng.now = self.now
+        eng.assignments = list(self.assignments)
+        eng._backlog = [dataclasses.replace(q) for q in self._backlog]
+        eng._next_index = self._next_index
+        return eng
+
+    def live_stats(self) -> cm.QueueStats:
+        """Queueing snapshot at the cursor — the *live* ``QueueStats`` the
+        serving front-end's admission control reads: busy fractions over
+        ``[0, now]``, waits of started tasks plus the still-growing waits
+        of the backlog, turnarounds of finished tasks, and the current
+        queue depth."""
+        t = self.now
+        busy = [0.0] * len(self.config.clusters)
+        waits, turns = [], []
+        for a in self.assignments:
+            for pp in a.placed:
+                busy[pp.partition.cluster] += max(
+                    0.0, min(pp.finish_cycles, t) - min(pp.start_cycles, t))
+            if a.start_cycles <= t:
+                waits.append(a.wait_cycles)
+            else:
+                waits.append(t - a.arrival_cycles)
+            if a.finish_cycles <= t:
+                turns.append(a.finish_cycles - a.arrival_cycles)
+        waits.extend(t - q.arrival for q in self._backlog)
+        return cm.queue_stats(self.config, busy, waits, turns, t,
+                              queue_depth=self.queue_depth)
+
+    def finish(self) -> ManyKernelSchedule:
+        """Apply the policy's whole-schedule postprocess and package the
+        placements (drained or not) into a :class:`ManyKernelSchedule`."""
+        assignments, ready = self.policy.postprocess(
+            self.config, list(self.assignments), list(self.ready))
+        makespan = max(ready) if ready else 0.0
+        total_bytes = sum(a.report.bytes_moved for a in assignments)
+        energy = sum(a.report.energy_pj for a in assignments)
+        return ManyKernelSchedule(
+            self.config, tuple(assignments), makespan, total_bytes, energy,
+            policy=self.policy.name,
+            stats=_queue_stats(self.config, assignments, makespan),
+        )
+
+
+def _queue_stats(config: cm.AcceleratorConfig,
+                 assignments: Sequence[TaskAssignment],
+                 makespan: float) -> cm.QueueStats:
+    busy = [0.0] * len(config.clusters)
+    for a in assignments:
+        for pp in a.placed:
+            busy[pp.partition.cluster] += pp.cycles
+    waits = [a.wait_cycles for a in assignments]
+    turns = [a.finish_cycles - a.arrival_cycles for a in assignments]
+    return cm.queue_stats(config, busy, waits, turns, makespan)
+
+
+#: name -> policy instance; populated by :func:`register_policy`.
+POLICIES: Dict[str, SchedulingPolicy] = {}
+
+
+def register_policy(cls):
+    """Class decorator: instantiate and index a policy by its ``name``."""
+    inst = cls()
+    if not inst.name or inst.name == "base":
+        raise ValueError(f"{cls.__name__} needs a distinct .name")
+    POLICIES[inst.name] = inst
+    return cls
+
+
+def available_policies() -> Tuple[str, ...]:
+    return tuple(sorted(POLICIES))
+
+
+def get_policy(name: str) -> SchedulingPolicy:
+    try:
+        return POLICIES[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown scheduling policy {name!r}; "
+            f"registered: {', '.join(available_policies())}") from None
+
+
+@register_policy
+class LptPolicy(SchedulingPolicy):
+    """Longest-processing-time first, earliest-finish placement — the
+    paper's baseline list scheduler (and the seed behaviour, kept
+    bit-equal: see tests/test_policies.py)."""
+
+    name = "lpt"
+
+    def priority(self, w, idx, best_cycles):
+        return (-best_cycles, idx)
+
+
+@register_policy
+class SjfPolicy(SchedulingPolicy):
+    """Shortest-job-first: minimises mean wait/turnaround under load —
+    the latency-friendly multi-tenant policy (at some makespan cost)."""
+
+    name = "sjf"
+
+    def priority(self, w, idx, best_cycles):
+        return (best_cycles, idx)
+
+
+@register_policy
+class AffinityPolicy(LptPolicy):
+    """Sparsity/dimension-affinity matching (paper §V-B): every kernel goes
+    to the cluster whose dataflow class handles its sparsity pattern and
+    dimension-boundedness fastest (pure compute match), queueing behind
+    that cluster rather than spilling onto a mismatched idle one.
+    LPT priority; only matched clusters count as placement-eligible, so
+    the engine holds queued tasks until *their* cluster frees."""
+
+    name = "affinity"
+
+    def eligible_clusters(self, config, w):
+        cycs = [_best_on_cluster(c, w, config.scratchpad_bytes)[0]
+                for c in config.clusters]
+        fastest = min(cycs)
+        return [ci for ci, cyc in enumerate(cycs) if cyc == fastest]
+
+    def place(self, config, ready, w, arrival):
+        options = []
+        for ci, cluster in enumerate(config.clusters):
+            cyc, cls, mirror, cost = _best_on_cluster(
+                cluster, w, config.scratchpad_bytes)
+            start = max(ready[ci], arrival)
+            options.append((cyc, start, ci, cls, mirror, cost))
+        cyc, start, ci, cls, mirror, cost = min(
+            options, key=lambda o: (o[0], o[1], o[2]))
+        return ci, start, cyc, cls, mirror, cost
+
+
+@register_policy
+class OptimizedPolicy(LptPolicy):
+    """LPT, then split the makespan-defining straggler across clusters by
+    reusing :func:`schedule_single_kernel` partitions (the paper's
+    best-performing many-kernel strategy): while the critical cluster's
+    last task can be partitioned and doing so shortens the makespan,
+    replace it with its single-kernel multi-cluster split."""
+
+    name = "optimized"
+
+    def postprocess(self, config, assignments, ready):
+        if not assignments or len(config.clusters) < 2:
+            return assignments, ready
+        for _ in range(len(assignments)):
+            makespan = max(ready)
+            crit = max(range(len(ready)), key=lambda c: ready[c])
+            last = max((a for a in assignments
+                        if not a.split
+                        and a.placed[0].partition.cluster == crit
+                        and a.finish_cycles >= makespan - 1e-9),
+                       key=lambda a: a.finish_cycles, default=None)
+            if last is None:
+                break
+            w = last.workload
+            single = schedule_single_kernel(config, w, memo=True)
+            parts = [p for p in single.partitions if not p.region.empty]
+            if len(parts) <= 1:
+                break
+            # Tentative: free the straggler's slot, append each partition
+            # to its cluster's queue tail.
+            trial = list(ready)
+            trial[crit] = last.placed[0].start_cycles
+            placed: List[PlacedPartition] = []
+            costs: List[cm.PartitionCost] = []
+            per_cluster: Dict[int, float] = {}
+            for p in parts:
+                r = p.region
+                c = cm.partition_cost(
+                    p.cls, config.clusters[p.cluster], r.m, r.k, r.n,
+                    w.d_mk, w.d_kn, mirror=p.mirror,
+                    scratch_bytes=config.scratchpad_bytes)
+                start = max(trial[p.cluster], last.arrival_cycles)
+                placed.append(PlacedPartition(p, start, c.cycles))
+                trial[p.cluster] = start + c.cycles
+                costs.append(c)
+                per_cluster[p.cluster] = (per_cluster.get(p.cluster, 0.0)
+                                          + c.cycles)
+            if max(trial) >= makespan - 1e-9:
+                break
+            rep = cm.aggregate(config, per_cluster, costs)
+            first = min(placed, key=lambda pp: pp.start_cycles)
+            finish = max(pp.finish_cycles for pp in placed)
+            assignments[assignments.index(last)] = TaskAssignment(
+                w, first.partition.cluster, first.partition.cls,
+                first.partition.mirror, first.start_cycles,
+                finish - first.start_cycles, rep,
+                task_index=last.task_index,
+                arrival_cycles=last.arrival_cycles, placed=tuple(placed))
+            ready = trial
+        return assignments, ready
+
+
+def schedule_many_kernels(config: cm.AcceleratorConfig,
+                          tasks: Sequence[Workload],
+                          policy: "str | SchedulingPolicy" = "lpt",
+                          arrivals: Optional[Sequence[float]] = None,
+                          ) -> ManyKernelSchedule:
+    """List-schedule a queue of independent kernels onto clusters.
+
+    Each kernel keeps ONE format pair (paper §V-B) and runs entirely on one
+    cluster — except under the ``optimized`` policy, which may split the
+    makespan straggler across clusters via single-kernel partitioning.
+    ``policy`` names a registered :class:`SchedulingPolicy`
+    (:func:`available_policies`); ``arrivals`` (cycles, same length as
+    ``tasks``) turns the schedule into an online queueing run whose
+    wait/utilization aggregates land in ``schedule.stats``.
+    """
+    pol = policy if isinstance(policy, SchedulingPolicy) else get_policy(policy)
+    return pol.schedule(config, tasks, arrivals)

@@ -189,6 +189,24 @@ def block_window_nnz(e: EllMatrix, window: int) -> torch.Tensor:
     return counts[:n_win].to(torch.int32)
 
 
+def tile_occupancy(e: EllMatrix, tile: int) -> torch.Tensor:
+    """Per-(fiber, minor-tile) nonzero counts: entry ``[f, t]`` counts the
+    nonzeros of fiber ``f`` with minor coordinate in ``[t·tile,
+    (t+1)·tile)``. One bincount over ``fiber · (n_tiles + 1) + tile`` (PAD
+    slots land in each fiber's discard bucket), so the work is the ELL's
+    size, not ``n_fibers × cap × n_tiles``. Returns int32 ``(n_fibers,
+    ceil(minor_size / tile))``.
+    """
+    n_tiles = -(-e.minor_size // tile)
+    t = torch.where(e.ids >= 0, torch.div(e.ids, tile, rounding_mode="floor"),
+                    n_tiles).long()
+    fiber = torch.arange(e.n_fibers, device=e.ids.device)[:, None]
+    flat = (t + fiber * (n_tiles + 1)).reshape(-1)
+    counts = torch.bincount(flat, minlength=e.n_fibers * (n_tiles + 1))
+    return counts.reshape(e.n_fibers, n_tiles + 1)[:, :n_tiles].to(
+        torch.int32)
+
+
 def ell_from_numpy(vals, ids, lens, shape, major_axis: int,
                    device) -> EllMatrix:
     """An :class:`EllMatrix` on ``device`` from numpy arrays (for instance

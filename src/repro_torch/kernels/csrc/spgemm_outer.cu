@@ -62,8 +62,8 @@ int outer_sparse(const T* a_vals, const int* a_ids, int cap_a,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  launch_tiled_gemm<float, true, T>(ta, tb, out, M, N, K, a_win, bm, b_win,
-                                    bn, stream);
+  launch_tiled_gemm<float, float, true, T>(ta, tb, out, M, N, K, a_win, bm,
+                                           b_win, bn, stream);
   return (int)cudaGetLastError();
 }
 

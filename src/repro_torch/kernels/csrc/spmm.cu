@@ -8,11 +8,11 @@
 // step of each N block and reuses it for every later M step; that relies
 // on the grid running in order on one core. CUDA blocks run in parallel
 // and share no scratch, so here the table is built once, for all of B, by
-// a kernel of its own (spmm_scatter_kernel) into a (K, N) f32 buffer in
-// device memory that the wrapper zeroes; the contraction kernel
-// (tiled_gemm.cuh) then computes A · table. Each fiber owns one table
-// column and its ids are unique, so the scatter needs no atomics; it walks
-// only the live capacity chunks of each fiber block (block_chunk_counts).
+// a kernel of its own (fiber_table.cuh, shared with the inner-product
+// SpGEMM) into a (K, N) f32 buffer in device memory that the wrapper
+// zeroes; the contraction kernel (tiled_gemm.cuh) then
+// computes A · table. The scatter walks only the live capacity chunks of
+// each fiber block (block_chunk_counts).
 // Bound: the contraction does 2·M·K·N f32 FMAs-worth of work on CUDA cores
 // (the table is dense), against the 2·M·nnz(B) the data needs; its design
 // answers the FMA bound with 8 x 8 register blocking over shared-memory
@@ -27,45 +27,21 @@
 // in chunks of 32 k, so those gathers hit shared memory, not device
 // memory. Bound: 2·M·nnz(B) FMAs, each needing one shared-memory load, so
 // shared-memory and issue bandwidth, not the FMA rate, limit it.
-#include <algorithm>
-
+#include "fiber_table.cuh"
 #include "tiled_gemm.cuh"
 
 namespace rt {
 
 // ------------------------------------------------------------ sparse body
-template <typename TV>
-__global__ void spmm_scatter_kernel(const TV* __restrict__ vals,
-                                    const int* __restrict__ ids,
-                                    const int* __restrict__ chunk_counts,
-                                    float* __restrict__ table, int K, int N,
-                                    int cap, int bn, int fc) {
-  const int blk = blockIdx.x;  // fiber block of bn fibers
-  const int live = min(cap, chunk_counts[blk] * fc);
-  const int total = bn * live;
-  for (int idx = blockIdx.y * blockDim.x + threadIdx.x; idx < total;
-       idx += gridDim.y * blockDim.x) {
-    const int f = blk * bn + idx / live;
-    const size_t off = (size_t)f * cap + idx % live;
-    const int id = ids[off];
-    if (id >= 0 && id < K) table[(size_t)id * N + f] = to_f32(vals[off]);
-  }
-}
-
 template <typename T>
 int spmm_sparse(const T* a, const T* vals, const int* ids, const int* counts,
                 float* table, T* out, int M, int K, int N, int cap, int bn,
                 int fc, cudaStream_t stream) {
-  const int n_blocks = N / bn;
-  if (n_blocks > 0 && cap > 0) {
-    const int gy = std::min(1024, (bn * cap + 2047) / 2048);
-    spmm_scatter_kernel<T><<<dim3(n_blocks, gy), 256, 0, stream>>>(
-        vals, ids, counts, table, K, N, cap, bn, fc);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  launch_tiled_gemm<T, false, T>(a, table, out, M, N, K, nullptr, 1, counts,
-                                 bn, stream);
+  const cudaError_t err = launch_fiber_table_scatter<T>(
+      vals, ids, counts, table, K, N, cap, bn, fc, stream);
+  if (err != cudaSuccess) return (int)err;
+  launch_tiled_gemm<T, float, false, T>(a, table, out, M, N, K, nullptr, 1,
+                                        counts, bn, stream);
   return (int)cudaGetLastError();
 }
 

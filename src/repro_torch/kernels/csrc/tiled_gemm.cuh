@@ -1,11 +1,14 @@
-// Shared-memory tiled f32 product used by the contraction step of the two
-// sparse bodies (SpMM's A · table, the outer product's table · tableᵀ).
+// Shared-memory tiled f32 product: the dense GEMM (gemm.cu) and the
+// contraction step of two sparse bodies (SpMM's A · table, the outer
+// product's table · tableᵀ).
 //
-// C (M, N) = A (M, K) · B, with B a float table laid out (K, N) when B_NK
-// is false and (N, K) when it is true. Each block owns a 128 x 128 output
-// tile; each of its 256 threads keeps an 8 x 8 register block and walks K
-// in steps of 8 through shared memory, so every A and B element loaded
-// from device memory feeds 8 FMAs from registers.
+// C (M, N) = A (M, K) · B, with B laid out (K, N) when B_NK is false and
+// (N, K) when it is true. A and B are f32 or bf16 (B is the f32 table of
+// the sparse bodies, or the dense operand of the GEMM); bf16 converts to
+// f32 as it is loaded. Each block owns a 128 x 128 output tile; each of
+// its 256 threads keeps an 8 x 8 register block and walks K in steps of 8
+// through shared memory, so every A and B element loaded from device
+// memory feeds 8 FMAs from registers.
 //
 // Tile skipping: row_live holds one count per window of row_win rows (and
 // col_live per col_win columns); nullptr means every window is live. A tile
@@ -25,9 +28,9 @@ __device__ __forceinline__ bool window_live(const int* live, int win, int i) {
   return live == nullptr || live[i / win] > 0;
 }
 
-template <typename TA, bool B_NK, typename TO>
+template <typename TA, typename TB, bool B_NK, typename TO>
 __global__ void __launch_bounds__(TG_THREADS)
-    tiled_gemm_kernel(const TA* __restrict__ A, const float* __restrict__ B,
+    tiled_gemm_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
                       TO* __restrict__ C, int M, int N, int K,
                       const int* __restrict__ row_live, int row_win,
                       const int* __restrict__ col_live, int col_win) {
@@ -75,7 +78,8 @@ __global__ void __launch_bounds__(TG_THREADS)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int k = k0 + kq + q;
-          Bs[kq + q][r] = (n < N && k < K) ? B[(size_t)n * K + k] : 0.f;
+          Bs[kq + q][r] =
+              (n < N && k < K) ? to_f32(B[(size_t)n * K + k]) : 0.f;
         }
       } else {  // (K, N) table: a warp reads 128 consecutive columns.
         const int kr = tid / 32, nq = (tid % 32) * 4;
@@ -83,7 +87,8 @@ __global__ void __launch_bounds__(TG_THREADS)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int n = n0 + nq + q;
-          Bs[kr][nq + q] = (k < K && n < N) ? B[(size_t)k * N + n] : 0.f;
+          Bs[kr][nq + q] =
+              (k < K && n < N) ? to_f32(B[(size_t)k * N + n]) : 0.f;
         }
       }
       __syncthreads();
@@ -118,13 +123,13 @@ __global__ void __launch_bounds__(TG_THREADS)
   }
 }
 
-template <typename TA, bool B_NK, typename TO>
-inline void launch_tiled_gemm(const TA* A, const float* B, TO* C, int M,
+template <typename TA, typename TB, bool B_NK, typename TO>
+inline void launch_tiled_gemm(const TA* A, const TB* B, TO* C, int M,
                               int N, int K, const int* row_live, int row_win,
                               const int* col_live, int col_win,
                               cudaStream_t stream) {
   const dim3 grid((N + TG_N - 1) / TG_N, (M + TG_M - 1) / TG_M);
-  tiled_gemm_kernel<TA, B_NK, TO><<<grid, TG_THREADS, 0, stream>>>(
+  tiled_gemm_kernel<TA, TB, B_NK, TO><<<grid, TG_THREADS, 0, stream>>>(
       A, B, C, M, N, K, row_live, row_win, col_live, col_win);
 }
 

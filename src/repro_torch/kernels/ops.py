@@ -21,6 +21,8 @@ from repro_torch.formats.ell import (
     pad_capacity,
 )
 from repro_torch.formats.taxonomy import DataflowClass
+from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import spgemm_inner as _inner
 from repro_torch.kernels import spgemm_outer as _outer
 from repro_torch.kernels import spmm as _spmm
 
@@ -79,6 +81,13 @@ def _pad_ell(e: EllMatrix, fiber_mult: int, minor_mult: int) -> EllMatrix:
 
 
 # --------------------------------------------------------- launch operands
+def gemm_operands(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+                  bn: int = 128, bk: int = 128):
+    """The zero-padded operands :func:`gemm` hands its kernel: ``(ap,
+    bp)``, ``a`` to ``(bm, bk)`` and ``b`` to ``(bk, bn)`` multiples."""
+    return _pad_dense(a, bm, bk), _pad_dense(b, bk, bn)
+
+
 def spmm_operands(a: torch.Tensor, b: EllMatrix, *, bm: Optional[int] = None,
                   bn: Optional[int] = None):
     """The padded operands and fiber block :func:`spmm` hands its kernel:
@@ -106,7 +115,28 @@ def spgemm_outer_operands(a: EllMatrix, b: EllMatrix, *,
     return _pad_ell(a, bk, bm), _pad_ell(b, bk, bn), bm, bn
 
 
+def spgemm_inner_operands(a: EllMatrix, b: EllMatrix, *,
+                          bm: Optional[int] = None, bn: Optional[int] = None,
+                          bk: int = 128):
+    """The padded operands and fiber blocks :func:`spgemm_inner` hands its
+    kernel: ``(ap, bp, bm, bn)``. The blocks default to 128, not
+    :func:`_auto_block`'s 256: the sparse body's trip count is the largest
+    fiber length of a block, and smaller blocks keep it tight."""
+    bm, bn = bm or 128, bn or 128
+    return _pad_ell(a, bm, bk), _pad_ell(b, bn, bk), bm, bn
+
+
 # --------------------------------------------------------------------- ops
+def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
+         bk: int = 128, device=None):
+    """(U_M U_K, U_K U_N) TPU-like dense GEMM."""
+    dev = resolve_device(device)
+    a, b = a.to(dev), b.to(dev)
+    m, n = a.shape[0], b.shape[1]
+    ap, bp = gemm_operands(a, b, bm=bm, bn=bn, bk=bk)
+    return _gemm.gemm(ap, bp)[:m, :n]
+
+
 def spmm(a: torch.Tensor, b: EllMatrix, *, bm: Optional[int] = None,
          bn: Optional[int] = None, method: str = "auto", device=None):
     """(U_M U_K, U_N C_K) EIE-like SpMM: dense A × compressed B."""
@@ -140,6 +170,18 @@ def spgemm_outer(a: EllMatrix, b: EllMatrix, *, bm: Optional[int] = None,
     return _outer.spgemm_outer(ap, bp, bm=bm, bn=bn, method=method)[:m, :n]
 
 
+def spgemm_inner(a: EllMatrix, b: EllMatrix, *, bm: Optional[int] = None,
+                 bn: Optional[int] = None, bk: int = 128,
+                 method: str = "auto", device=None):
+    """(U_M C_K, U_N C_K) ExTensor-like inner-product SpGEMM."""
+    dev = resolve_device(device)
+    a, b = a.to(dev), b.to(dev)
+    m, n = a.shape[0], b.shape[1]
+    ap, bp, bm, bn = spgemm_inner_operands(a, b, bm=bm, bn=bn, bk=bk)
+    return _inner.spgemm_inner(ap, bp, bm=bm, bn=bn, bk=bk,
+                               method=method)[:m, :n]
+
+
 def _not_ported(kernel: str, row: int):
     def op(*args, **kwargs):
         raise NotImplementedError(
@@ -149,10 +191,6 @@ def _not_ported(kernel: str, row: int):
     return op
 
 
-gemm = _not_ported("gemm (kernels/gemm.py:_gemm_kernel)", 5)
-spgemm_inner = _not_ported(
-    "spgemm_inner (kernels/spgemm_inner.py:_inner_sparse_kernel, "
-    "_inner_reference_kernel)", 6)
 spgemm_gustavson = _not_ported(
     "spgemm_gustavson (kernels/spgemm_gustavson.py:_gustavson_sparse_kernel, "
     "_gustavson_reference_kernel)", 8)

@@ -1,5 +1,5 @@
 """Dense oracles for the ported dataflow classes — the port of
-``repro.kernels.ref``: the paper's TACO loop nests (Fig 2b, 2d) as
+``repro.kernels.ref``: the paper's TACO loop nests (Fig 2a-2d) as
 vectorised torch on whatever device the operands lie on. Tests hold the
 kernels' plain versions against these; nothing on the executor's path
 calls them.
@@ -32,6 +32,14 @@ def _scatter_dense(e: EllMatrix, acc: torch.dtype) -> torch.Tensor:
     return out.scatter_add_(1, safe, vals)[:, : e.minor_size]
 
 
+def gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(U_M U_K, U_K U_N) — TPU-like dense GEMM: ``for m; for n; for k``,
+    accumulated in f32 or the operands' wider type."""
+    acc = _acc_dtype(a.dtype, b.dtype)
+    out = (a.to(acc)[:, :, None] * b.to(acc)[None]).sum(dim=1)
+    return out.to(torch.promote_types(a.dtype, b.dtype))
+
+
 def spmm_ref(a: torch.Tensor, b: EllMatrix) -> torch.Tensor:
     """(U_M U_K, U_N C_K) — EIE-like SpMM: ``for m; for n; for kB in
     pos(n)``. ``b`` holds column fibers (major_axis=1), ids indexing K."""
@@ -51,6 +59,21 @@ def spmm_mirror_ref(a: EllMatrix, b: torch.Tensor) -> torch.Tensor:
     gathered = b.to(acc)[safe]                     # (M, C, N) = B[k(m,c), n]
     out = (gathered * a.vals.to(acc)[..., None]).sum(dim=1)
     return out.to(torch.promote_types(a.vals.dtype, b.dtype))
+
+
+def spgemm_inner_ref(a: EllMatrix, b: EllMatrix) -> torch.Tensor:
+    """(U_M C_K, U_N C_K) — ExTensor-like inner-product SpGEMM: B densifies
+    to ``(K, N)`` and A's coordinates gather the matching rows, so a K
+    coordinate contributes exactly when both fibers hold it."""
+    assert a.major_axis == 0 and b.major_axis == 1
+    assert a.shape[1] == b.shape[0]
+    acc = _acc_dtype(a.vals.dtype, b.vals.dtype)
+    bd = _scatter_dense(b, acc).T                  # (K, N)
+    live = a.ids >= 0
+    safe = torch.where(live, a.ids, 0).long()
+    av = torch.where(live, a.vals.to(acc), 0)
+    out = torch.einsum("mc,mcn->mn", av, bd[safe])
+    return out.to(torch.promote_types(a.vals.dtype, b.vals.dtype))
 
 
 def spgemm_outer_ref(a: EllMatrix, b: EllMatrix) -> torch.Tensor:

@@ -1,0 +1,212 @@
+"""ExTensor-like inner-product SpGEMM (U_M C_K, U_N C_K) on Hopper — the
+port of ``repro.kernels.spgemm_inner``: ``a`` held as M row fibers (ids ->
+K) times ``b`` held as N column fibers (ids -> K) gives ``(M, N)``.
+
+Two bodies behind one entry point, as in the JAX package, each a CUDA
+kernel in ``csrc/spgemm_inner.cu``:
+
+``method="sparse"`` — scatters B's live fibers once into a dense ``(K, N)``
+f32 table in device memory (a kernel of its own, shared with SpMM: the
+TPU's build-at-the-first-M-step trick races on CUDA), then gathers table
+rows at A's coordinates and contracts them over A's live capacity chunks;
+fiber blocks either operand proves empty write zeros.
+
+``method="reference"`` — per ``(M, N)`` tile and K step of ``bk``, skips
+unless both operands have an entry there (``tile_occupancy``), expands both
+operands' fibers into shared memory and applies a rank-``bk`` update.
+
+``"auto"`` keeps the TPU's rule: sparse when ``4·cap_a <= K``.
+
+Both bodies compute the same function; :func:`spgemm_inner_plain` is its
+plain PyTorch version, which a wrapper runs for tensors on the CPU and only
+then. A CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from repro_torch.formats.ell import (
+    PAD_ID,
+    EllMatrix,
+    block_chunk_counts,
+    pad_capacity,
+    tile_occupancy,
+)
+from repro_torch.kernels import _build
+from repro_torch.kernels.spmm import fit_block
+
+#: Capacity-chunk width of the sparse body's live-chunk trip count.
+INNER_FIBER_CHUNK = 16
+
+#: The reference kernel's largest K step (its shared-memory tiles).
+INNER_REFERENCE_BK_MAX = 128
+
+#: Kernel launches per body since the counts were last reset.
+launches = {"inner_sparse": 0, "inner_reference": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "inner_sparse_launch": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I,
+                            _P, _P, _I, _I, _I, _I, _P],
+    "inner_reference_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+                               _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+def resolve_method(method: str, k: int, cap_a: int) -> str:
+    """The body ``method`` selects: ``"auto"`` is sparse while the gather
+    volume (∝ ``cap_a``) undercuts the dense-K expansion it replaces."""
+    if method == "auto":
+        return "sparse" if 4 * cap_a <= k else "reference"
+    if method in ("sparse", "reference"):
+        return method
+    raise ValueError(f"unknown spgemm_inner method: {method!r}")
+
+
+def spgemm_inner(a: EllMatrix, b: EllMatrix, *, bm: int = 128,
+                 bn: int = 128, bk: int = 128,
+                 method: str = "auto") -> torch.Tensor:
+    """A (M row fibers, ids->K) × B (N column fibers, ids->K) -> ``(M, N)``
+    in ``result_type(a.vals, b.vals)``. ``bm``/``bn`` are the fiber blocks
+    of the chunk counts and occupancy, ``bk`` the reference body's K step;
+    all shrink to divide ragged shapes."""
+    assert a.major_axis == 0 and b.major_axis == 1
+    m, k = a.shape
+    kb, n = b.shape
+    assert k == kb, (a.shape, b.shape)
+    bm, bn = fit_block(m, bm), fit_block(n, bn)
+    dtype = torch.promote_types(a.vals.dtype, b.vals.dtype)
+    a = dataclasses.replace(a, vals=a.vals.to(dtype))
+    b = dataclasses.replace(b, vals=b.vals.to(dtype))
+    if resolve_method(method, k, a.cap) == "sparse":
+        return inner_sparse(a, b, bm=bm, bn=bn,
+                            fc=min(INNER_FIBER_CHUNK, a.cap))
+    return inner_reference(a, b, bm=bm, bn=bn, bk=fit_block(k, bk))
+
+
+def spgemm_inner_plain(a: EllMatrix, b: EllMatrix) -> torch.Tensor:
+    """Plain PyTorch version of both bodies: B scattered to a dense ``(K,
+    N)`` f32 table, then ``out[m, :] = Σ_c a.vals[m, c] · table[a.ids[m,
+    c], :]`` over live slots, in row chunks that bound the gathered
+    ``(rows, cap, N)`` block."""
+    (m, k), n = a.shape, b.shape[1]
+    out_dtype = torch.promote_types(a.vals.dtype, b.vals.dtype)
+    dev = a.vals.device
+    table = torch.zeros((k + 1, n), dtype=torch.float32, device=dev)
+    cols = torch.arange(b.n_fibers, device=dev)[:, None].expand_as(b.ids)
+    table.index_put_((torch.where(b.ids >= 0, b.ids, k).long(), cols),
+                     b.vals.float(), accumulate=True)
+    table = table[:k]
+    live = a.ids >= 0
+    safe = torch.where(live, a.ids, 0).long()
+    vals = torch.where(live, a.vals.float(), 0.0)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    step = max(1, (1 << 26) // max(a.cap * n, 1))
+    for m0 in range(0, m, step):
+        m1 = min(m, m0 + step)
+        g = table[safe[m0:m1]]                       # (rows, cap, N)
+        out[m0:m1] = (vals[m0:m1, :, None] * g).sum(dim=1).to(out_dtype)
+    return out
+
+
+def _check(what: str, a: EllMatrix, b: EllMatrix) -> int:
+    _build.require_cuda_operands(what, a.vals, a.ids, a.lens, b.vals, b.ids,
+                                 b.lens)
+    if any(t.dtype != torch.int32 for t in (a.ids, a.lens, b.ids, b.lens)):
+        raise ValueError(f"{what}: ids and lens must be int32")
+    if (a.major_axis, b.major_axis) != (0, 1) or a.shape[1] != b.shape[0]:
+        raise ValueError(f"{what}: shapes {a.shape} x {b.shape} (major axes "
+                         f"{a.major_axis}, {b.major_axis})")
+    return _build.dtype_code(what, a.vals.dtype, b.vals.dtype)
+
+
+def inner_sparse(a: EllMatrix, b: EllMatrix, *, bm: int, bn: int,
+                 fc: int) -> torch.Tensor:
+    """The sparse body: B's table scatter + gather-contract over A's live
+    chunks on the card, or :func:`spgemm_inner_plain` for CPU tensors."""
+    if a.vals.device.type == "cpu":
+        return spgemm_inner_plain(a, b)
+    code = _check("inner_sparse", a, b)
+    (m, k), n = a.shape, b.shape[1]
+    if m % bm or n % bn:
+        raise ValueError(f"inner_sparse: {m} x {n} fibers not multiples of "
+                         f"bm={bm}, bn={bn}")
+    chunks = -(-a.cap // fc)
+    if chunks * fc != a.cap:
+        a = pad_capacity(a, chunks * fc)
+    acnt = block_chunk_counts(a, bm, fc)           # live A chunks per M block
+    bnz = block_chunk_counts(b, bn)                # live B slots per N block
+    dev = a.vals.device
+    table = torch.zeros((k, n), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n), dtype=a.vals.dtype, device=dev)
+    lib = _build.load("spgemm_inner", _SIGNATURES)
+    P = _build.ptr
+    with torch.cuda.device(dev):
+        _build.check(lib.inner_sparse_launch(
+            P(a.vals), P(a.ids), a.cap, P(acnt), bm, fc, P(b.vals),
+            P(b.ids), b.cap, P(bnz), bn, P(table), P(out), m, k, n, code,
+            _build.stream(dev)), "inner_sparse")
+    launches["inner_sparse"] += 1
+    return out
+
+
+def _step_offsets(occ: torch.Tensor) -> torch.Tensor:
+    """``(n_fibers, k_steps + 1)`` int32 prefix sums of the per-step
+    occupancy: with ids ascending, the slots of step ``kk`` in fiber ``f``
+    are ``[off[f, kk], off[f, kk + 1])``."""
+    off = torch.zeros((occ.shape[0], occ.shape[1] + 1), dtype=torch.int32,
+                      device=occ.device)
+    off[:, 1:] = torch.cumsum(occ, dim=1)
+    return off
+
+
+def _ordered(e: EllMatrix) -> torch.Tensor:
+    """``(n_fibers,)`` bool: the fiber's live ids lie in ``[0,
+    minor_size)`` and ascend, and its PAD slots come last, as
+    ``dense_to_ell`` writes them (``ell_from_numpy`` does not promise it).
+    Computed on the device, with no host sync."""
+    in_range = ((e.ids >= PAD_ID) & (e.ids < e.minor_size)).all(dim=1)
+    key = torch.where(e.ids >= 0, e.ids, e.minor_size)  # PAD sorts last
+    return in_range & (key[:, 1:] >= key[:, :-1]).all(dim=1)
+
+
+def inner_reference(a: EllMatrix, b: EllMatrix, *, bm: int, bn: int,
+                    bk: int) -> torch.Tensor:
+    """The reference body: occupancy-skipped per-tile expansion + rank-bk
+    updates on the card, or :func:`spgemm_inner_plain` for CPU tensors.
+
+    The kernel reads a K step's entries of an ordered fiber (see
+    :func:`_ordered`) as one run of slots, and scans every slot of a fiber
+    out of order. ``bk`` must divide K and be at most
+    :data:`INNER_REFERENCE_BK_MAX`.
+    """
+    if a.vals.device.type == "cpu":
+        return spgemm_inner_plain(a, b)
+    code = _check("inner_reference", a, b)
+    (m, k), n = a.shape, b.shape[1]
+    if m % bm or n % bn or k % bk or bk > INNER_REFERENCE_BK_MAX:
+        raise ValueError(f"inner_reference: {m}x{k}x{n} with bm={bm}, "
+                         f"bn={bn}, bk={bk} (bk <= "
+                         f"{INNER_REFERENCE_BK_MAX} dividing K)")
+    k_steps = k // bk
+    occ_a = tile_occupancy(a, bk)
+    occ_b = tile_occupancy(b, bk)
+    a_occ = occ_a.reshape(m // bm, bm, k_steps).sum(1, dtype=torch.int32)
+    b_occ = occ_b.reshape(n // bn, bn, k_steps).sum(1, dtype=torch.int32)
+    a_off, b_off = _step_offsets(occ_a), _step_offsets(occ_b)
+    a_ord, b_ord = _ordered(a), _ordered(b)
+    dev = a.vals.device
+    out = torch.empty((m, n), dtype=a.vals.dtype, device=dev)
+    lib = _build.load("spgemm_inner", _SIGNATURES)
+    P = _build.ptr
+    with torch.cuda.device(dev):
+        _build.check(lib.inner_reference_launch(
+            P(a.vals), P(a.ids), P(a_off), P(a_ord), a.cap, P(b.vals),
+            P(b.ids), P(b_off), P(b_ord), b.cap, P(a_occ), bm, P(b_occ), bn,
+            P(out), m, k, n, bk, code, _build.stream(dev)),
+            "inner_reference")
+    launches["inner_reference"] += 1
+    return out

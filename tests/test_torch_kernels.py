@@ -1,9 +1,9 @@
 """Parity of the PyTorch port's ops (``repro_torch.kernels.ops``) with the
-JAX package's (``repro.kernels.ops``) for SpMM, mirrored SpMM and the
-outer-product SpGEMM: the same numpy operands go through the port's plain
-versions on the CPU and through the JAX Pallas kernels in interpret mode,
-as ``tests/test_kernels.py`` runs them. Tolerances are that file's: f32
-``rtol=atol=1e-4``, bf16 ``2e-2``.
+JAX package's (``repro.kernels.ops``) for the dense GEMM, SpMM, mirrored
+SpMM, and the inner- and outer-product SpGEMMs: the same numpy operands go
+through the port's plain versions on the CPU and through the JAX Pallas
+kernels in interpret mode, as ``tests/test_kernels.py`` runs them.
+Tolerances are that file's: f32 ``rtol=atol=1e-4``, bf16 ``2e-2``.
 """
 import sys
 
@@ -14,15 +14,19 @@ import pytest
 import torch
 
 from repro import formats as jF
+from repro.formats import ell as jell
 from repro.kernels import ops as jops
 from repro_torch.formats import ell as tell
+from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import spgemm_inner as tinner
 from repro_torch.kernels import spgemm_outer as touter
 from repro_torch.kernels import spmm as tspmm
 
 # ``repro.kernels`` re-exports functions named like its modules.
 jspmm = sys.modules["repro.kernels.spmm"]
+jinner = sys.modules["repro.kernels.spgemm_inner"]
 jouter = sys.modules["repro.kernels.spgemm_outer"]
 
 SHAPES = [
@@ -87,6 +91,16 @@ def spmm_operands(shape, density, dtype, seed=2):
     return a, b, jb, tb
 
 
+def inner_operands(shape, density, dtype, seed=6):
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    a = sparse(rng, m, k, density)
+    b = sparse(rng, k, n, max(density, 0.05))
+    ja, ta = ells(a, 0, dtype)
+    jb, tb = ells(b, 1, dtype)
+    return a, b, ja, ta, jb, tb
+
+
 def outer_operands(shape, density, dtype, seed=5):
     m, k, n = shape
     rng = np.random.default_rng(seed)
@@ -95,6 +109,22 @@ def outer_operands(shape, density, dtype, seed=5):
     ja, ta = ells(a, 1, dtype)
     jb, tb = ells(b, 0, dtype)
     return a, b, ja, ta, jb, tb
+
+
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gemm_matches_jax(shape, dtype, density):
+    m, k, n = shape
+    rng = np.random.default_rng(4)
+    a = sparse(rng, m, k, density)
+    b = sparse(rng, k, n, 1.0)
+    want = jops.gemm(to_jax(a, dtype), to_jax(b, dtype), interpret=True)
+    got = tops.gemm(to_torch(a, dtype), to_torch(b, dtype), device="cpu")
+    assert got.shape == (m, n) and got.dtype == TORCH_DTYPE[dtype]
+    assert_close(got, want, dtype)
+    assert_close(got, tref.gemm_ref(to_torch(a, dtype), to_torch(b, dtype)),
+                 dtype)
 
 
 @pytest.mark.parametrize("method", ["sparse", "reference"])
@@ -147,6 +177,33 @@ def test_spgemm_outer_matches_jax(shape, dtype, density, method):
     assert_close(got, tref.spgemm_outer_ref(ta, tb), dtype)
 
 
+@pytest.mark.parametrize("method", ["sparse", "reference"])
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_spgemm_inner_matches_jax(shape, dtype, density, method):
+    a, b, ja, ta, jb, tb = inner_operands(shape, density, dtype)
+    want = jops.spgemm_inner(ja, jb, interpret=True, method=method)
+    got = tops.spgemm_inner(ta, tb, method=method, device="cpu")
+    assert got.shape == shape[::2] and got.dtype == TORCH_DTYPE[dtype]
+    assert_close(got, want, dtype)
+    assert_close(got, tref.spgemm_inner_ref(ta, tb), dtype)
+
+
+@pytest.mark.parametrize("tile", [1, 8, 16, 50, 128])
+@pytest.mark.parametrize("major_axis", [0, 1])
+def test_tile_occupancy_matches_jax(tile, major_axis):
+    rng = np.random.default_rng(3)
+    x = sparse(rng, 60, 70, 0.1)
+    x[8:24, :] = 0
+    x[:, 30:45] = 0
+    j, t = ells(x, major_axis, "float32")
+    want = np.asarray(jell.tile_occupancy(j, tile))
+    got = tell.tile_occupancy(t, tile)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def recorder(monkeypatch, module, names):
     """Wrap ``module``'s body functions so each call records its name."""
     seen = []
@@ -161,13 +218,14 @@ def recorder(monkeypatch, module, names):
     return seen
 
 
-# SpMM densities on both sides of 2·cap <= K; outer shapes on both sides
-# of the 8 MiB table budget (4·K·(M+N) is 0.5 MiB at 256x256x256 and
-# 11 MiB at 1024x1280x1024).
+# SpMM densities on both sides of 2·cap <= K, inner ones on both sides of
+# 4·cap_a <= K; outer shapes on both sides of the 8 MiB table budget
+# (4·K·(M+N) is 0.5 MiB at 256x256x256 and 11 MiB at 1024x1280x1024).
 @pytest.mark.parametrize("op,shape,density", [
     ("spmm", (128, 128, 128), 0.05), ("spmm", (128, 128, 128), 1.0),
     ("spmm", (128, 300, 256), 0.3), ("spmm", (128, 300, 256), 1.0),
     ("spmm", (100, 90, 70), 0.05), ("spmm", (100, 90, 70), 0.3),
+    ("inner", (128, 300, 256), 0.05), ("inner", (128, 300, 256), 0.3),
     ("outer", (256, 256, 256), 0.05), ("outer", (256, 256, 256), 0.3),
     ("outer", (1024, 1280, 1024), 0.01),
 ])
@@ -182,6 +240,15 @@ def test_auto_routes_to_the_same_body(monkeypatch, op, shape, density):
         jops.spmm.clear_cache()        # trace again, so the body records
         want = jops.spmm(to_jax(a, dtype), jb, interpret=True)
         got = tops.spmm(to_torch(a, dtype), tb, device="cpu")
+    elif op == "inner":
+        jax_seen = recorder(monkeypatch, jinner,
+                            ["_inner_sparse", "_inner_reference"])
+        port_seen = recorder(monkeypatch, tinner,
+                             ["inner_sparse", "inner_reference"])
+        a, b, ja, ta, jb, tb = inner_operands(shape, density, dtype)
+        jops.spgemm_inner.clear_cache()
+        want = jops.spgemm_inner(ja, jb, interpret=True)
+        got = tops.spgemm_inner(ta, tb, device="cpu")
     else:
         jax_seen = recorder(monkeypatch, jouter,
                             ["_outer_sparse", "_outer_reference"])
@@ -199,10 +266,8 @@ def test_auto_routes_to_the_same_body(monkeypatch, op, shape, density):
 def test_unported_classes_raise():
     from repro_torch.formats.taxonomy import DataflowClass
 
-    for cls in (DataflowClass.GEMM, DataflowClass.SPGEMM_INNER,
-                DataflowClass.SPGEMM_GUSTAVSON):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tops.dispatch(cls, None, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tops.dispatch(DataflowClass.SPGEMM_GUSTAVSON, None, None)
 
 
 def test_cpu_wrappers_never_launch():
@@ -210,10 +275,46 @@ def test_cpu_wrappers_never_launch():
     no kernel launch."""
     a, b, _, tb = spmm_operands((64, 64, 64), 0.3, "float32")
     ta_, tb_ = torch.from_numpy(a), tb
-    before = (dict(tspmm.launches), dict(touter.launches))
+    before = (dict(tspmm.launches), dict(touter.launches),
+              dict(tinner.launches), dict(tgemm.launches))
     tspmm.spmm_sparse(ta_, tb_, bn=64)
     tspmm.spmm_reference(ta_, tb_)
     _, _, _, oa, _, ob = outer_operands((64, 64, 64), 0.3, "float32")
     touter.outer_sparse(oa, ob, bm=64, bn=64)
     touter.outer_reference(oa, ob)
-    assert (tspmm.launches, touter.launches) == before
+    _, _, _, ia, _, ib = inner_operands((64, 64, 64), 0.3, "float32")
+    tinner.inner_sparse(ia, ib, bm=64, bn=64, fc=16)
+    tinner.inner_reference(ia, ib, bm=64, bn=64, bk=64)
+    tgemm.gemm(ta_, ta_)
+    assert (tspmm.launches, touter.launches, tinner.launches,
+            tgemm.launches) == before
+
+
+@pytest.mark.parametrize("major_axis", [0, 1])
+def test_inner_reference_flags_unordered_fibers(major_axis):
+    """The reference body reads a K step of an ordered fiber (live ids in
+    range and ascending, PAD slots last) as one run of slots and scans the
+    others whole: ``dense_to_ell`` fibers are all ordered, and a fiber
+    whose slots were shuffled, or that holds an id out of range, is
+    flagged exactly when its order broke."""
+    rng = np.random.default_rng(3)
+    x = sparse(rng, 96, 80, 0.2)
+    e = tell.dense_to_ell(torch.from_numpy(x), major_axis,
+                          exact_cap(x, major_axis) + 4, strict=True)
+    assert tinner._ordered(e).all()
+    perm = torch.from_numpy(np.stack([rng.permutation(e.cap)
+                                      for _ in range(e.n_fibers)]))
+    ids = torch.gather(e.ids, 1, perm)
+    shuffled = tell.EllMatrix(torch.gather(e.vals, 1, perm), ids, e.lens,
+                              e.shape, e.major_axis)
+    key = np.where(ids.numpy() >= 0, ids.numpy(), e.minor_size)
+    want = (np.diff(key, axis=1) >= 0).all(axis=1)
+    assert not want.all()
+    np.testing.assert_array_equal(tinner._ordered(shuffled).numpy(), want)
+    # An id outside [0, minor_size) in the last slot of fiber 0 (which
+    # keeps the order) marks that fiber, and only it, as not ordered.
+    ids = e.ids.clone()
+    ids[0, -1] = e.minor_size
+    bad = tell.EllMatrix(e.vals, ids, e.lens, e.shape, e.major_axis)
+    np.testing.assert_array_equal(tinner._ordered(bad).numpy(),
+                                  np.arange(e.n_fibers) != 0)

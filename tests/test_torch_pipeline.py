@@ -19,7 +19,13 @@ from repro_torch.core import costmodel as tcm
 from repro_torch.core import dse as tdse
 from repro_torch.core import scheduler as tsched
 from repro_torch.core import workloads as twl
-from repro_torch.core.hetero_matmul import execute_schedule, hetero_matmul
+from repro_torch.core.hetero_matmul import (
+    execute_assignments,
+    execute_many_kernel_schedule,
+    execute_schedule,
+    hetero_many_matmul,
+    hetero_matmul,
+)
 from repro_torch.formats import ell as tell
 from repro_torch.formats.taxonomy import DataflowClass as TClass
 from repro_torch.kernels import ops as tops
@@ -152,11 +158,12 @@ def run_both(a, b, js, ts):
 
 @pytest.mark.parametrize("name,max_elems", [
     ("citeseer", 1 << 17), ("chem97ZtZ", 1 << 17), ("m3plates", 1 << 17),
-    ("bibd_81_3", 1 << 18),
+    ("bibd_81_3", 1 << 18), ("journals", 1 << 14), ("speech", 1 << 15),
+    ("gnmt", 1 << 17), ("transformer", 1 << 14),
 ])
 def test_execute_schedule_matches_jax(name, max_elems):
     """Table I workloads, scaled down, on their own aespa_equal4 schedules
-    (outer products and mirrored SpMM)."""
+    (outer products, mirrored SpMM, GEMM, and SpMM beside inner SpGEMM)."""
     a, b, dims = twl.synthesize(twl.BY_NAME[name], seed=0,
                                 max_elems=max_elems)
     jw, tw = workload_pair(name, dims)
@@ -219,8 +226,20 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hetero_matmul(a, b, tdse.aespa_equal4())
     b_ell = tell.dense_to_ell(torch.from_numpy(b), 1, 8)
+    a_ell = tell.dense_to_ell(torch.from_numpy(a), 0, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tops.spmm(torch.from_numpy(a), b_ell)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tops.gemm(torch.from_numpy(a), torch.from_numpy(b))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tops.spgemm_inner(a_ell, b_ell)
+    ms = tsched.schedule_many_kernels(tdse.aespa_equal4(), [tw])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        execute_many_kernel_schedule([(a, b)], ms)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        execute_assignments(ms.assignments, {0: (a, b)}, ms.config)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hetero_many_matmul([(a, b)], tdse.aespa_equal4())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tops.resolve_device()
     assert tops.resolve_device("cpu") == torch.device("cpu")
