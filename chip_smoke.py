@@ -10,15 +10,18 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card and power limit.
+   Search ``dse.aespa_opt()`` (the paper's searched design) and print its
+   clusters and the search's wall time.
 2. Hold each kernel against its plain PyTorch version on the card, at every
-   launch shape the main paths of phases 3 and 3c give it (each shape
-   once) and on edge cases (ragged GEMM dims, empty fiber blocks and
-   windows, a fiber at exactly its capacity, a K tile live on one side
-   only, fibers whose live slots are out of order, both bodies forced on
-   one pair, bfloat16), with the kernel's, the plain version's and
-   ``torch.matmul``'s times (CUDA events, median after warm-up; one timing
-   for a call over 100 ms) beside the least time the card could take. The
-   body "auto" passed over is timed too.
+   launch shape the main paths of phases 3, 3c and 3d give it (each shape
+   once) and on edge cases (ragged GEMM and Gustavson dims, empty fiber
+   blocks and windows, a fiber at exactly its capacity, a K tile live on
+   one side only, fibers whose live slots are out of order, both bodies
+   forced on one pair, bfloat16; the Gustavson ones against the dense
+   oracle ``ref.spgemm_gustavson_ref``), with the kernel's, the plain
+   version's and ``torch.matmul``'s times (CUDA events, median after
+   warm-up; one timing for a call over 100 ms) beside the least time the
+   card could take. The body "auto" passed over is timed too.
 3. The single-kernel path: ``schedule_single_kernel(aespa_equal4())`` then
    ``execute_schedule`` on the card for the nine Table I workloads (and
    citeseer reduced so that the outer product's sparse body runs), each
@@ -29,12 +32,20 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    ``schedule_many_kernels(aespa_equal4(), Table I)`` and
    ``execute_many_kernel_schedule`` under ``lpt`` (synthetic_dense whole on
    the GEMM), ``sjf`` and ``affinity`` (m3plates and speech on the outer
-   product), and ``hetero_many_matmul`` on two synthetic_dense tasks under
+   product), ``hetero_many_matmul`` on two synthetic_dense tasks under
    ``optimized`` (the second split into SpMM k[0:2500] and outer
-   k[2500:5000], a K-split merge); every task against float64. Then each
-   of these runs once more under ``torch.profiler``.
+   k[2500:5000], a K-split merge), and the Table I queue on ``aespa_opt``
+   under ``lpt`` (with bibd_81_3 reduced, six tasks whole on the Gustavson
+   cluster and gnmt on the inner product; at Table I's dims gnmt goes to
+   Gustavson); every task against float64. Then each of these runs once
+   more under ``torch.profiler``.
+   3d. The single-kernel path on ``aespa_opt`` for the nine Table I
+   workloads, on the same operands, each against float64 (Gustavson
+   partitions at synthetic_dense, speech and gnmt, citeseer whole), then
+   each once more under ``torch.profiler``.
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   paths of phases 3 and 3c (each must be > 0) and the numbers of phase 2.
+   paths of phases 3, 3c and 3d (each must be > 0; the counts are set to 0
+   before each phase and read after it) and the numbers of phase 2.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -60,6 +71,8 @@ from repro_torch.formats import ell  # noqa: E402
 from repro_torch.formats.taxonomy import DataflowClass  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import gemm as gemm_mod  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import spgemm_gustavson as gust_mod  # noqa: E402
 from repro_torch.kernels import spgemm_inner as inner_mod  # noqa: E402
 from repro_torch.kernels import spgemm_outer as outer_mod  # noqa: E402
 from repro_torch.kernels import spmm as spmm_mod  # noqa: E402
@@ -109,9 +122,14 @@ REPLACES = {
                      "src/repro/kernels/spgemm_inner.py:114"),
     "inner_reference": ("src/repro_torch/kernels/csrc/spgemm_inner.cu",
                         "src/repro/kernels/spgemm_inner.py:49"),
+    "gustavson_sparse": ("src/repro_torch/kernels/csrc/spgemm_gustavson.cu",
+                         "src/repro/kernels/spgemm_gustavson.py:101"),
+    "gustavson_reference": (
+        "src/repro_torch/kernels/csrc/spgemm_gustavson.cu",
+        "src/repro/kernels/spgemm_gustavson.py:47"),
 }
 COUNTERS = (spmm_mod.launches, outer_mod.launches, gemm_mod.launches,
-            inner_mod.launches)
+            inner_mod.launches, gust_mod.launches)
 
 
 def log(msg: str) -> None:
@@ -317,6 +335,35 @@ def inner_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto"):
                                               method=other)))
 
 
+def gustavson_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto",
+                   plain=None):
+    """``plain`` defaults to the module's plain version; the edge cases
+    pass the dense oracle ``ref.spgemm_gustavson_ref`` instead, which
+    gathers an (N, cap, M) block and so only suits small operands."""
+    m, k = ap.shape
+    n = bp.shape[1]
+    chosen = gust_mod.resolve_method(method, k, bp.cap)
+    other = "reference" if chosen == "sparse" else "sparse"
+    a_dense = ell.ell_to_dense(ap)
+    b_dense = ell.ell_to_dense(bp)
+    # The products the data needs: a pair per K coordinate both hold (A's
+    # fiber k against B's entries at k).
+    per_k_b = torch.bincount(bp.ids[bp.ids >= 0].long(), minlength=k)
+    pairs = float(((ap.ids >= 0).sum(1).double() * per_k_b.double()).sum())
+    return KernelCase(
+        "gustavson_" + chosen, label,
+        kernel=lambda: gust_mod.spgemm_gustavson(ap, bp, bm=bm, bn=bn, bk=bk,
+                                                 method=chosen),
+        plain=plain or (lambda: gust_mod.spgemm_gustavson_plain(ap, bp)),
+        library=lambda: torch.matmul(a_dense, b_dense),
+        in_bytes=nbytes(ap.vals, ap.ids, bp.vals, bp.ids),
+        out_bytes=m * n * ap.vals.element_size(),
+        flops=2.0 * pairs, dtype=ap.vals.dtype,
+        other=("gustavson_" + other,
+               lambda: gust_mod.spgemm_gustavson(ap, bp, bm=bm, bn=bn, bk=bk,
+                                                 method=other)))
+
+
 def region_tag(label, p):
     r = p.region
     return (f"{label} [{r.m0}:{r.m1},{r.k0}:{r.k1},{r.n0}:{r.n1}] "
@@ -360,7 +407,9 @@ def partition_cases(label, a_d, b_d, partitions, seen):
                                                  bk=BLOCK)
             make = lambda: outer_case(tag, *operands)  # noqa: E731
         else:
-            raise AssertionError(f"{tag}: class not ported")
+            operands = ops.spgemm_gustavson_operands(pa, pb, bm=BLOCK,
+                                                     bn=BLOCK, bk=BLOCK)
+            make = lambda: gustavson_case(tag, *operands)  # noqa: E731
         key = launch_key(p.cls, *operands)
         if key not in seen:
             seen.add(key)
@@ -370,10 +419,12 @@ def partition_cases(label, a_d, b_d, partitions, seen):
 
 def edge_cases():
     """Small operands built to hit the kernels' edges, in float32 and
-    bfloat16: an all-zero fiber block (SpMM, inner) or window (outer), an
-    all-zero A block (inner), a fiber at exactly its capacity, K tiles live
-    on one side only (inner), ragged GEMM dims, and both bodies of each
-    sparse kernel forced on one operand pair."""
+    bfloat16: an all-zero fiber block (SpMM, inner, Gustavson) or window
+    (outer, Gustavson), an all-zero A block (inner), a fiber at exactly its
+    capacity, K tiles live on one side only (inner), ragged GEMM dims and
+    ragged Gustavson M, K and N, live slots out of order (inner,
+    Gustavson), and both bodies of each sparse kernel forced on one
+    operand pair."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def sparse(r, c, density):
@@ -423,12 +474,7 @@ def edge_cases():
                                     method=method))
         # The same pair with each fiber's live slots shuffled (ids out of
         # order, PAD slots still last): both bodies must still agree.
-        shuffled = [ell.EllMatrix(e.vals.gather(1, perm), e.ids.gather(1, perm),
-                                  e.lens, e.shape, e.major_axis)
-                    for e in (ap, bp)
-                    for perm in [(torch.rand(e.ids.shape, device="cuda",
-                                             generator=gen)
-                                  + 2.0 * (e.ids < 0)).argsort(dim=1)]]
+        shuffled = [shuffle_live_slots(e, gen) for e in (ap, bp)]
         for method in ("sparse", "reference"):
             cases.append(inner_case(f"edge {name} shuffled", *shuffled, bm,
                                     bn, method=method))
@@ -446,7 +492,61 @@ def edge_cases():
                                                        bn=128)
             cases.append(outer_case(f"edge {name}", ap, bp, bm, bn,
                                     method))
+        # Gustavson, each case against the dense oracle: ragged M, K and N
+        # straight into the kernels (the blocks shrink to divide them).
+        a = sparse(200, 260, 0.05)
+        b = sparse(260, 130, 0.2)
+        a_ell = ell.dense_to_ell(a.to(dtype), 1, int((a != 0).sum(0).max()),
+                                 strict=True)
+        b_ell = ell.dense_to_ell(b.to(dtype), 1, int((b != 0).sum(0).max()),
+                                 strict=True)
+        for method in ("sparse", "reference"):
+            cases.append(gustavson_case(
+                f"edge {name} ragged 200x260x130", a_ell, b_ell, 128, 128,
+                method=method, plain=gustavson_oracle(a_ell, b_ell)))
+        # Through the ops padding: A's M window 128..255 empty, B's N block
+        # 128..255 empty, A's fiber 5 and B's fiber 3 each exactly at
+        # capacity 32 (the fullest fibers; 32 survives the bucketing).
+        a = sparse(384, 300, 0.03)
+        a[128:256, :] = 0
+        a[:, 5] = 0
+        a[torch.cat([torch.arange(0, 128, 8), torch.arange(256, 384, 8)]),
+          5] = -1.75
+        b = sparse(300, 384, 0.05)
+        b[:, 128:256] = 0
+        b[:, 3] = 0
+        b[torch.arange(0, 300, 9)[:32], 3] = 1.25
+        a_ell = ell.dense_to_ell(a.to(dtype), 1, 32, strict=True)
+        b_ell = ell.dense_to_ell(b.to(dtype), 1, 32, strict=True)
+        ap, bp, bm, bn = ops.spgemm_gustavson_operands(a_ell, b_ell, bm=128,
+                                                       bn=128)
+        if int(ap.lens[5]) != ap.cap or int(bp.lens[3]) != bp.cap:
+            raise AssertionError("Gustavson edge case: fibers not at cap")
+        for method in ("sparse", "reference"):
+            cases.append(gustavson_case(f"edge {name}", ap, bp, bm, bn,
+                                        method=method,
+                                        plain=gustavson_oracle(ap, bp)))
+        # The same pair with live slots shuffled in both operands.
+        shuffled = [shuffle_live_slots(e, gen) for e in (ap, bp)]
+        for method in ("sparse", "reference"):
+            cases.append(gustavson_case(
+                f"edge {name} shuffled", *shuffled, bm, bn, method=method,
+                plain=gustavson_oracle(*shuffled)))
     return cases
+
+
+def gustavson_oracle(ap, bp):
+    return lambda: ref.spgemm_gustavson_ref(ap, bp)
+
+
+def shuffle_live_slots(e, gen):
+    """``e`` with each fiber's live slots in random order (PAD slots stay
+    last, as ELL keeps them): the kernels' scan path for fibers out of
+    order."""
+    key = torch.rand(e.ids.shape, device="cuda", generator=gen)
+    perm = (key + 2.0 * (e.ids < 0)).argsort(dim=1)
+    return ell.EllMatrix(e.vals.gather(1, perm), e.ids.gather(1, perm),
+                         e.lens, e.shape, e.major_axis)
 
 
 def check_product(label, out, a_d, b_d) -> float:
@@ -558,6 +658,25 @@ def main() -> int:
     optimized = scheduler.schedule_many_kernels(
         config, [measured_workload(f"task{i}", *ab)
                  for i, ab in enumerate(twice)], policy="optimized")
+    # The searched design (phase 3d) and its schedules on the same nine.
+    t0 = time.perf_counter()
+    opt = dse.aespa_opt()
+    log(f"phase 3d search: aespa_opt in {time.perf_counter() - t0:.2f} s, "
+        "clusters " + ", ".join(f"{c.name} {c.pes} PEs"
+                                for c in opt.clusters))
+    opt_runs = [(label, w, a_d, b_d, scheduler.schedule_single_kernel(opt, w))
+                for label, w, a_d, b_d, _ in queue]
+    opt_lpt = scheduler.schedule_many_kernels(opt, [r[1] for r in queue],
+                                              policy="lpt")
+    # With bibd_81_3 reduced, lpt puts gnmt on the inner product and six
+    # tasks on the Gustavson cluster (at Table I's dims, gnmt goes there).
+    on_gust = [a.workload.name for a in opt_lpt.assignments
+               if a.cls == DataflowClass.SPGEMM_GUSTAVSON]
+    log("opt lpt placement: " + ", ".join(
+        f"{a.workload.name} on {a.cls.value}" for a in opt_lpt.assignments))
+    if not on_gust:
+        raise AssertionError("lpt on aespa_opt put no task on the "
+                             "Gustavson cluster")
 
     # ---- phase 2: each kernel against its plain version ----------------
     # Every launch shape of phases 3 and 3c, each once.
@@ -565,8 +684,11 @@ def main() -> int:
     rows, seen = [], set()
     launch_sets = [(label, a_d, b_d, schedule.partitions)
                    for label, w, a_d, b_d, schedule in runs]
+    launch_sets += [(f"opt {label}", a_d, b_d, schedule.partitions)
+                    for label, w, a_d, b_d, schedule in opt_runs]
     for policy, ms, pairs in ([(p, ms, queue_pairs) for p, ms in queue_runs]
-                              + [("optimized", optimized, twice)]):
+                              + [("optimized", optimized, twice),
+                                 ("opt lpt", opt_lpt, queue_pairs)]):
         launch_sets += [(f"{policy} {asg.workload.name}",
                          *pairs[asg.task_index],
                          [pp.partition for pp in asg.placed])
@@ -616,6 +738,8 @@ def main() -> int:
             queue_pairs, ms), ms, queue_pairs))
     got = run_queue("optimized synthetic_dense x2", lambda: (
         *hm.hetero_many_matmul(twice, config, policy="optimized"), twice))
+    run_queue("opt lpt", lambda: (hm.execute_many_kernel_schedule(
+        queue_pairs, opt_lpt), opt_lpt, queue_pairs))
     many_launches = counts()
     if [a.placed for a in got.assignments] != [
             a.placed for a in optimized.assignments]:
@@ -631,10 +755,41 @@ def main() -> int:
     log("profile optimized synthetic_dense x2: " + json.dumps(profile_run(
         lambda: hm.hetero_many_matmul(twice, config, policy="optimized"),
         top=8)))
+    log("profile opt lpt queue: " + json.dumps(profile_run(
+        lambda: hm.execute_many_kernel_schedule(queue_pairs, opt_lpt),
+        top=8)))
     log(f"phase 3c profile: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 3d: the single-kernel path on aespa_opt -------------------
+    t0 = time.perf_counter()
+    reset_counts()
+    for label, w, a_d, b_d, schedule in opt_runs:
+        before = counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = hm.execute_schedule(a_d, b_d, schedule)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        bodies = {k: v - before[k] for k, v in counts().items()
+                  if v != before[k]}
+        rel = check_product(f"opt {label}", out, a_d, b_d)
+        parts = [region_tag("", p).strip() for p in schedule.partitions]
+        log(f"opt {label} {w.m}x{w.k}x{w.n}: partitions {parts}, bodies "
+            f"{bodies}, wall {wall_ms:.3f} ms, rel err {rel:.3e}")
+        del out
+        torch.cuda.empty_cache()
+    opt_launches = counts()
+    log(f"phase 3d aespa_opt path: {time.perf_counter() - t0:.1f} s, "
+        f"launches {opt_launches}")
+    t0 = time.perf_counter()
+    for label, w, a_d, b_d, schedule in opt_runs:
+        log(f"profile opt {label}: " + json.dumps(
+            profile_run(lambda: hm.execute_schedule(a_d, b_d, schedule))))
+    log(f"phase 3d profile: {time.perf_counter() - t0:.1f} s")
+
     # ---- phase 4: the kernels line ---------------------------------------
-    launches = {k: single_launches[k] + many_launches[k] for k in REPLACES}
+    launches = {k: single_launches[k] + many_launches[k] + opt_launches[k]
+                for k in REPLACES}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]

@@ -1,6 +1,7 @@
-"""Analytical performance/energy model (paper §VI), the part of
-``repro.core.costmodel`` that single- and many-kernel scheduling read,
-copied so the port carries no dependency on the JAX package.
+"""Analytical performance/energy model (paper §VI), the port of
+``repro.core.costmodel`` as the schedulers, the DSE and the executor's
+cost hook read it, copied so the port carries no dependency on the JAX
+package.
 
 Approximates each kernel's runtime by the tripcount of the compute loop of
 its TACO kernel (Fig 2), divided by the usable PEs (bounded by the class's
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -463,6 +464,286 @@ def geomean(xs: Sequence[float]) -> float:
     accumulation, as the JAX package's batched evaluator reproduces it)."""
     xs = [max(x, 1e-30) for x in xs]
     return math.exp(sum(math.log(x) for x in xs) / len(xs))
+
+
+# ----------------------------------------------- batched (joint-space) eval
+@dataclasses.dataclass(frozen=True)
+class ConfigBatch:
+    """Structure-of-arrays batch of ``n`` candidate accelerator designs.
+
+    Candidate ``i`` owns one *basic* cluster per swept dataflow class —
+    ``pes[i, j]`` PEs of ``classes[j]`` (0 = the class is absent from that
+    design) — plus its own memory system: ``hbm_bw[i]`` bytes/s and
+    ``scratchpad_bytes[i]`` bytes. That is exactly the joint DSE design
+    vector {area fractions, hbm_bw, scratchpad_bytes}; hybrid
+    (multi-class) clusters are out of scope — they never appear in the
+    swept space, only in the fixed baseline configs, which keep the
+    scalar path.
+
+    Invariant: ``batch.config(i)`` materialises the *same*
+    :class:`AcceleratorConfig` (cluster order, PE counts, memory fields)
+    that :func:`aespa_from_fractions` builds from the fraction vector —
+    :meth:`from_fractions` mirrors its arithmetic operation for operation,
+    including ``pes_for_area``'s truncation.
+    """
+
+    classes: Tuple[DataflowClass, ...]
+    pes: np.ndarray                 # (n, C) int64; 0 = absent cluster
+    hbm_bw: np.ndarray              # (n,) float; inf = unlimited
+    scratchpad_bytes: np.ndarray    # (n,) float
+
+    @property
+    def n(self) -> int:
+        return self.pes.shape[0]
+
+    @property
+    def feasible(self) -> np.ndarray:
+        """(n,) bool: candidate has at least one non-empty cluster (the
+        batch twin of :func:`aespa_from_fractions` yielding no clusters)."""
+        return (self.pes > 0).any(axis=1)
+
+    @classmethod
+    def from_fractions(cls, vecs: Sequence[Sequence[float]],
+                       classes: Sequence[DataflowClass],
+                       hbm_bw=hwdb.HBM_BW,
+                       scratchpad_bytes=hwdb.SCRATCH_BYTES) -> "ConfigBatch":
+        """Build a batch from (n, C) area-fraction vectors over ``classes``.
+
+        ``hbm_bw``/``scratchpad_bytes`` may be scalars or (n,) arrays.
+        Mirrors :func:`aespa_from_fractions` exactly: fractions are
+        normalised by the sum of the *positive* entries, each class gets
+        ``int(COMPUTE_MM2 · frac/total / area_per_pe)`` PEs, and a class
+        whose share truncates to zero PEs is absent."""
+        classes = tuple(classes)
+        vecs = np.asarray(vecs, dtype=float)
+        if vecs.ndim != 2 or vecs.shape[1] != len(classes):
+            raise ValueError(
+                f"fraction array of shape {vecs.shape} does not match "
+                f"{len(classes)} classes")
+        n = vecs.shape[0]
+        # Ordered accumulation (class order, positives only) == the scalar
+        # sum(fractions.values()); adding 0.0 for skipped entries is exact.
+        total = np.zeros(n)
+        for j in range(len(classes)):
+            total += np.where(vecs[:, j] > 0.0, vecs[:, j], 0.0)
+        safe_total = np.where(total > 0.0, total, 1.0)
+        pes = np.zeros((n, len(classes)), dtype=np.int64)
+        for j, c in enumerate(classes):
+            per_pe = hwdb.PROFILES[c].area_mm2_per_pe
+            area = hwdb.COMPUTE_MM2 * vecs[:, j] / safe_total
+            cnt = np.floor(area / per_pe)   # == pes_for_area's int() (>0)
+            pes[:, j] = np.where(vecs[:, j] > 0.0, cnt, 0.0).astype(np.int64)
+        bw = np.broadcast_to(np.asarray(hbm_bw, dtype=float), (n,)).copy()
+        scratch = np.broadcast_to(
+            np.asarray(scratchpad_bytes, dtype=float), (n,)).copy()
+        return cls(classes, pes, bw, scratch)
+
+    def config(self, i: int, name: str = "aespa_dse") -> AcceleratorConfig:
+        """Materialise candidate ``i`` as a scalar-path config."""
+        clusters = tuple(
+            basic_cluster(c, int(self.pes[i, j]))
+            for j, c in enumerate(self.classes) if self.pes[i, j] > 0)
+        return AcceleratorConfig(name, clusters, float(self.hbm_bw[i]),
+                                 float(self.scratchpad_bytes[i]))
+
+
+@dataclasses.dataclass(frozen=True)
+class SuiteEvalBatch:
+    """Per-candidate geomean suite metrics — the (n,) array twin of
+    ``repro_torch.core.dse.SuiteEval``. Infeasible candidates score ``inf``."""
+
+    geomean_runtime_s: np.ndarray
+    geomean_energy_pj: np.ndarray
+    geomean_edp: np.ndarray
+
+    @property
+    def n(self) -> int:
+        return self.geomean_runtime_s.shape[0]
+
+    def objective(self, name: str) -> np.ndarray:
+        if name == "edp":
+            return self.geomean_edp
+        if name == "runtime":
+            return self.geomean_runtime_s
+        if name == "energy":
+            return self.geomean_energy_pj
+        raise ValueError(f"unknown objective {name!r}; "
+                         "one of ('edp', 'runtime', 'energy')")
+
+
+#: Candidate-axis chunk of the batched suite evaluation: bounds the
+#: (chunk, templates) intermediates to a few MB regardless of sweep size.
+_EVAL_CHUNK = 1024
+
+
+def evaluate_config_batch(batch: ConfigBatch,
+                          suite: Sequence,
+                          fracs: Optional[Sequence[float]] = None,
+                          refine: bool = False) -> SuiteEvalBatch:
+    """Score every candidate of ``batch`` against a workload suite in one
+    numpy pass — the joint-DSE evaluator.
+
+    Bit-matches the scalar path: for every feasible candidate ``i``,
+    ``evaluate_config_batch(batch, suite)`` equals
+    ``dse.evaluate_config(batch.config(i), suite)`` exactly (same floats,
+    not approximately) — the per-candidate schedule search
+    (:func:`repro_torch.core.scheduler.batch_single_kernel_eval`) replicates the
+    scalar scheduler's arithmetic and tie-breaking operation for
+    operation, and the geomeans accumulate with scalar ``math`` calls in
+    suite order. Infeasible candidates (no clusters) come back ``inf``.
+    """
+    from repro_torch.core import scheduler as _sched  # lazy: circular import
+
+    if fracs is None:
+        fracs = _sched._FRACS
+    fracs = tuple(fracs)
+    n = batch.n
+    out_rt = np.empty(n)
+    out_en = np.empty(n)
+    out_edp = np.empty(n)
+    for lo in range(0, n, _EVAL_CHUNK):
+        hi = min(lo + _EVAL_CHUNK, n)
+        sub = ConfigBatch(batch.classes, batch.pes[lo:hi],
+                          batch.hbm_bw[lo:hi], batch.scratchpad_bytes[lo:hi])
+        runtimes: List[np.ndarray] = []
+        energies: List[np.ndarray] = []
+        for w in suite:
+            rt, en = _sched.batch_single_kernel_eval(sub, w, fracs=fracs,
+                                                     refine=refine)
+            runtimes.append(rt)
+            energies.append(en)
+        # KernelReport.edp == energy_pj * 1e-12 * runtime_s, same order.
+        edps = [en * 1e-12 * rt for rt, en in zip(runtimes, energies)]
+        for i in range(hi - lo):
+            out_rt[lo + i] = geomean([float(r[i]) for r in runtimes])
+            out_en[lo + i] = geomean([float(e[i]) for e in energies])
+            out_edp[lo + i] = geomean([float(e[i]) for e in edps])
+    return SuiteEvalBatch(out_rt, out_en, out_edp)
+
+
+# --------------------------------------------------------------------------
+# Software-kernel cost: the achieved-intensity hook of the executor's
+# ``cost_sink`` (``ops.op_cost``). The hardware model above predicts the
+# paper's accelerator; this section models one kernel call:
+#
+# * ``flops``/``bytes`` — the algorithmic work and HBM traffic of the
+#   sparsity-proportional formulation (FLOPs ∝ nnz). ``intensity`` is their
+#   ratio: the roofline x-coordinate the kernel should sit at.
+# * ``mac_eq`` — a time proxy in dense-MAC equivalents, built from
+#   per-element weights of the four primitive operations the kernel bodies
+#   are composed of.
+# --------------------------------------------------------------------------
+
+#: The JAX package's per-element weights, fitted to its Pallas kernels in
+#: interpret mode on a CPU (dense MAC the unit, gather+batched-dot,
+#: scatter-add, one-hot expansion). Kept unchanged so both packages report
+#: the same costs; they say nothing about the CUDA kernels' times on the
+#: card (refitting them from H100 rows is ROADMAP.md work).
+W_MAC = 1.0
+W_GATHER = 30.0
+W_SCATTER = 5000.0
+W_EXPAND = 500.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SwKernelCost:
+    """Modelled cost of one kernel invocation (not the paper HW)."""
+
+    kind: str                 # "gemm" | "spmm" | "inner" | "outer" | "gustavson"
+    method: str               # resolved body: "dense" | "sparse" | "reference"
+    flops: float              # useful (sparsity-proportional) FLOPs
+    bytes: float              # modelled HBM traffic
+    mac_eq: float             # time proxy, dense-MAC units
+
+    @property
+    def intensity(self) -> float:
+        """Roofline x-coordinate: useful FLOPs per modelled HBM byte."""
+        return self.flops / max(self.bytes, 1.0)
+
+
+def sw_kernel_cost(
+    kind: str, m: int, k: int, n: int, *,
+    nnz_a: Optional[float] = None, nnz_b: Optional[float] = None,
+    cap_a: Optional[int] = None, cap_b: Optional[int] = None,
+    method: str = "auto", bm: int = 128, bn: int = 128,
+) -> SwKernelCost:
+    """Model one kernel call. ``nnz_*`` are true nonzero counts (host
+    floats are fine); ``cap_*`` the static ELL capacities, used only to
+    resolve ``method="auto"`` with the same thresholds the kernel entry
+    points apply (kernels/{spmm,spgemm_*}.py — keep in sync)."""
+    ell = WORD + IDX                       # bytes per live compressed entry
+    mkn = float(m) * k * n
+    out_b = WORD * float(m) * n
+    if kind == "gemm":
+        return SwKernelCost("gemm", "dense", 2.0 * mkn,
+                            WORD * float(m * k + k * n) + out_b, mkn)
+
+    na = float(nnz_a if nnz_a is not None else m * k)
+    nb = float(nnz_b if nnz_b is not None else k * n)
+    # Per-tile expansion burden of the reference bodies: every (bm, bn)
+    # output tile re-expands its operand fibers across the full minor dim.
+    ref_expand = W_EXPAND * mkn * (1.0 / bm + 1.0 / bn)
+
+    if kind == "spmm":
+        if method == "auto":
+            method = "sparse" if cap_b is not None and 2 * cap_b <= k else "reference"
+        flops = 2.0 * m * nb
+        if method == "sparse":
+            return SwKernelCost(kind, method, flops,
+                                WORD * float(m) * k + ell * nb + out_b,
+                                mkn + W_SCATTER * nb)
+        return SwKernelCost(kind, method, flops,
+                            WORD * float(m) * k + ell * nb * (m // bm) + out_b,
+                            mkn + W_EXPAND * (m // bm) * float(k) * n)
+
+    if kind == "inner":
+        if method == "auto":
+            method = "sparse" if cap_a is not None and 4 * cap_a <= k else "reference"
+        flops = 2.0 * na * n
+        if method == "sparse":
+            return SwKernelCost(kind, method, flops,
+                                ell * (na * (n // bn) + nb) + out_b,
+                                W_GATHER * na * n + W_SCATTER * nb)
+        return SwKernelCost(kind, method, flops,
+                            ell * (na * (n // bn) + nb * (m // bm)) + out_b,
+                            mkn + ref_expand)
+
+    if kind == "outer":
+        if method == "auto":
+            from repro_torch.kernels.spgemm_outer import OUTER_TABLE_BYTES_MAX
+            fits = 4 * k * (m + n) <= OUTER_TABLE_BYTES_MAX
+            method = "sparse" if fits else "reference"
+        flops = 2.0 * na * nb / max(k, 1)
+        if method == "sparse":
+            return SwKernelCost(kind, method, flops, ell * (na + nb) + out_b,
+                                mkn + W_SCATTER * (na + nb))
+        return SwKernelCost(kind, method, flops,
+                            ell * (na + nb) * (m // bm) * (n // bn) + out_b,
+                            mkn + ref_expand)
+
+    if kind == "gustavson":
+        if method == "auto":
+            method = "sparse" if cap_b is not None and 4 * cap_b <= k else "reference"
+        flops = 2.0 * na * nb / max(k, 1)
+        if method == "sparse":
+            return SwKernelCost(kind, method, flops,
+                                ell * (na * (m // bm) + nb) + out_b,
+                                W_GATHER * nb * m + W_SCATTER * na * (m // bm))
+        return SwKernelCost(kind, method, flops,
+                            ell * (na + nb) * (m // bm) * (n // bn) + out_b,
+                            mkn + ref_expand)
+
+    raise ValueError(f"unknown sw kernel kind: {kind!r}")
+
+
+#: DataflowClass -> sw_kernel_cost kind (the executor's cost-sink hook).
+SW_KIND = {
+    DataflowClass.GEMM: "gemm",
+    DataflowClass.SPMM: "spmm",
+    DataflowClass.SPGEMM_INNER: "inner",
+    DataflowClass.SPGEMM_OUTER: "outer",
+    DataflowClass.SPGEMM_GUSTAVSON: "gustavson",
+}
 
 
 # -------------------------------------------------------------- queueing

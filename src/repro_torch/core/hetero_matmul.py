@@ -140,13 +140,20 @@ def prepare_partitions(jobs):
 
 
 def execute_schedule(a, b, schedule: KernelSchedule, block: int = 128,
-                     device=None) -> torch.Tensor:
+                     device=None,
+                     cost_sink: Optional[list] = None) -> torch.Tensor:
     """Run every partition on its assigned sub-accelerator kernel and merge.
 
     M/N-split partials tile the output; K-split partials for the same
     output tile sum first, then each tile lands with one add. ``a``/``b``
     are dense (numpy arrays or tensors); ``device=None`` runs on the card
     and raises without one, ``device="cpu"`` runs the plain versions.
+
+    ``cost_sink`` (optional list) is the achieved-intensity hook: one
+    :class:`repro_torch.core.costmodel.SwKernelCost` (``ops.op_cost``) is
+    appended per dispatched partition, the modelled FLOPs/bytes/time proxy
+    of exactly the kernel call made. Off by default, because each entry
+    reads the partition's true nonzero counts on the host.
     """
     dev = ops.resolve_device(device)
     a_d = torch.as_tensor(a, device=dev)
@@ -158,6 +165,9 @@ def execute_schedule(a, b, schedule: KernelSchedule, block: int = 128,
     tiles: dict = {}
     for p, sa, sb, caps in prepare_partitions([(a_d, b_d, parts)])[0]:
         pa, pb = _prep_operands(p.cls, sa, sb, p.mirror, caps)
+        if cost_sink is not None:
+            cost_sink.append(ops.op_cost(p.cls, pa, pb, bm=block, bn=block,
+                                         mirror=p.mirror))
         partial = _dispatch_partition(p.cls, pa, pb, p.mirror, block, dev)
         r = p.region
         tiles.setdefault((r.m0, r.m1, r.n0, r.n1), []).append(partial)

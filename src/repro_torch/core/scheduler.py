@@ -1,12 +1,15 @@
-"""Single-kernel scheduling for heterogeneous sparse accelerators (paper
-§V-A), copied from ``repro.core.scheduler`` so the port carries no
-dependency on the JAX package.
+"""Scheduling for heterogeneous sparse accelerators (paper §V), copied
+from ``repro.core.scheduler`` so the port carries no dependency on the JAX
+package.
 
 :func:`schedule_single_kernel` partitions ONE matmul across M/N/K into
 regions of different compression formats, one per sub-accelerator cluster,
 to maximise TFLOP/s on a latency-critical kernel (Fig 6). The schedule it
 returns feeds both the analytical cost model and the numerical executor
 (``repro_torch.core.hetero_matmul.execute_schedule``).
+:func:`batch_single_kernel_eval` runs the same search for a whole batch of
+candidate designs in one numpy pass, the DSE's evaluator
+(``repro_torch.core.dse``).
 
 :func:`schedule_many_kernels` list-schedules a queue of independent kernels
 onto the clusters under a registered policy (``lpt``, ``sjf``,
@@ -327,6 +330,190 @@ def _batch_template_eval(config: cm.AcceleratorConfig, w: Workload,
     return runtime_s, energy_pj, valid
 
 
+# ------------------------------------- candidate-axis (joint-space) search
+def batch_template_eval_joint(batch: cm.ConfigBatch, w: Workload,
+                              fm, fk, fn):
+    """Fig 6e template sweep with the candidate axis vectorized alongside
+    the triple axis: (runtime_s, energy_pj, valid) as ``(n, t)`` arrays
+    over ``n`` candidate designs × ``t`` fraction triples.
+
+    The generalisation of :func:`_batch_template_eval` the joint DSE runs
+    on — same slot order, same validity rules, same exact arithmetic
+    (scalar-``math`` transcendentals via :func:`_np_output_density`,
+    cluster-ordered power accumulation), with the per-candidate PE counts,
+    HBM bandwidth and scratchpad capacity broadcast against the triples.
+    """
+    D = DataflowClass
+    n, t = batch.n, len(fm)
+    pes_i = batch.pes
+    pes_f = pes_i.astype(float)
+    idx = {c: j for j, c in enumerate(batch.classes)}
+    scratch = batch.scratchpad_bytes[:, None]
+
+    def pes_of(cls_):
+        j = idx.get(cls_)
+        return pes_i[:, j] if j is not None else np.zeros(n, np.int64)
+
+    m_s = np.rint(w.m * np.asarray(fm, float)).astype(np.int64)   # (t,)
+    k_s = np.rint(w.k * np.asarray(fk, float)).astype(np.int64)
+    n_s = np.rint(w.n * np.asarray(fn, float)).astype(np.int64)
+    full_m = np.full(t, w.m, np.int64)
+
+    # K1 block: the N split between the K-parallel classes depends on the
+    # candidate's PE counts, so n_mid picks up the candidate axis: (n, t).
+    k1 = w.k - k_s
+    has_k1 = k_s < w.k
+    po = np.minimum(pes_of(D.SPGEMM_OUTER)[:, None], k1[None, :])
+    pg = np.minimum(pes_of(D.SPGEMM_GUSTAVSON), w.n)[:, None]
+    denom = po + pg
+    n_mid = np.rint(w.n * po / np.maximum(denom, 1)).astype(np.int64)
+    k1_eff = np.where(has_k1, k1, 0)
+
+    slots = (
+        (D.GEMM, False, m_s, k_s, n_s),
+        (D.SPMM, True, w.m - m_s, k_s, n_s),
+        (D.SPMM, False, m_s, k_s, w.n - n_s),
+        (D.SPGEMM_INNER, False, w.m - m_s, k_s, w.n - n_s),
+        (D.SPGEMM_OUTER, False, full_m, k1_eff, n_mid),
+        (D.SPGEMM_GUSTAVSON, False, full_m, k1_eff, w.n - n_mid),
+    )
+
+    valid = ~(has_k1[None, :] & (denom == 0))
+    has_any = np.zeros((n, t), bool)
+    cc: Dict[int, np.ndarray] = {}
+    total_bytes = np.zeros((n, t))
+    effectual = np.zeros((n, t))
+    for cls_, mirror, ms, ks, ns in slots:
+        nonempty = (ms > 0) & (ks > 0) & (ns > 0)       # (t,) or (n, t)
+        j = idx.get(cls_)
+        present = ((pes_i[:, j] > 0) if j is not None
+                   else np.zeros(n, bool))[:, None]
+        valid &= ~(nonempty & ~present)  # region needs an absent cluster
+        if j is None:
+            continue
+        live = nonempty & present
+        has_any |= live
+        mf, kf, nf = (np.asarray(x, float) for x in (ms, ks, ns))
+        trips = _np_tripcount(cls_, mf, kf, nf, w.d_mk, w.d_kn, mirror)
+        p_eff = np.minimum(pes_f[:, j][:, None],
+                           _np_parallelism_bound(cls_, mf, kf, nf, mirror))
+        cycles = np.where(live,
+                          np.ceil(trips / np.maximum(p_eff, 1.0)), 0.0)
+        cc[j] = cc.get(j, 0.0) + cycles
+        total_bytes = total_bytes + np.where(
+            live,
+            _np_operand_bytes(cls_, mf, kf, nf, w.d_mk, w.d_kn, mirror,
+                              scratch=scratch), 0.0)
+        effectual += np.where(live, mf * kf * nf * w.d_mk * w.d_kn, 0.0)
+    valid &= has_any
+
+    compute_cycles = np.zeros((n, t))
+    for arr in cc.values():
+        compute_cycles = np.maximum(compute_cycles, arr)
+    mem_s = total_bytes / batch.hbm_bw[:, None]   # x/inf == 0.0, as scalar
+    runtime_s = np.maximum(
+        np.maximum(compute_cycles / hwdb.FREQ_HZ, mem_s), 1e-12)
+    powered_mw = np.zeros((n, t))
+    for j in sorted(cc):   # ascending class index == config cluster order
+        nameplate = (hwdb.PROFILES[batch.classes[j]].power_mw_per_pe
+                     * pes_f[:, j])[:, None]
+        powered_mw += np.where(cc[j] > 0.0, nameplate, 0.0)
+    energy_pj = (
+        powered_mw * (runtime_s * hwdb.FREQ_HZ)
+        + total_bytes * (hwdb.E_HBM_PER_BYTE + hwdb.E_SCRATCH_PER_BYTE)
+        + effectual * hwdb.E_MAC
+    )
+    return runtime_s, energy_pj, valid
+
+
+def batch_single_kernel_eval(batch: cm.ConfigBatch, w: Workload,
+                             fracs: Sequence[float] = _FRACS,
+                             refine: bool = True
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Single-kernel schedule search for ``n`` candidate designs in one
+    numpy pass: ``(runtime_s, energy_pj)`` as (n,) arrays.
+
+    For every feasible candidate ``i`` this equals — bit for bit — the
+    scalar ``schedule_single_kernel(batch.config(i), w, fracs, refine)``
+    report: the whole-kernel candidates are scanned in the same order with
+    the same strict-``<`` (runtime, energy) tie-breaking, the template
+    winner replicates the scalar argmin (first index on ties, fine grid
+    masked off for single-cluster candidates exactly as the scalar path
+    skips it), and every arithmetic operation preserves the scalar
+    evaluation order. Infeasible candidates (no clusters) return ``inf``.
+    """
+    n = batch.n
+    pes_f = batch.pes.astype(float)
+    bw = batch.hbm_bw
+    reuse = cm.reuse_aware_traffic()
+    e_byte = hwdb.E_HBM_PER_BYTE + hwdb.E_SCRATCH_PER_BYTE
+
+    best_rt = np.full(n, np.inf)
+    best_en = np.full(n, np.inf)
+
+    def consider(rt, en, ok):
+        nonlocal best_rt, best_en
+        better = ok & ((rt < best_rt) | ((rt == best_rt) & (en < best_en)))
+        best_rt = np.where(better, rt, best_rt)
+        best_en = np.where(better, en, best_en)
+
+    # Whole-kernel candidates, in _whole_kernel_candidates order: clusters
+    # in batch-class order, SPMM mirror=False before mirror=True.
+    effectual = float(w.m) * w.k * w.n * w.d_mk * w.d_kn
+    for j, cls_ in enumerate(batch.classes):
+        present = batch.pes[:, j] > 0
+        if not present.any():
+            continue
+        power_pe = hwdb.PROFILES[cls_].power_mw_per_pe
+        orients = ((False, True) if cls_ == DataflowClass.SPMM
+                   else (False,))
+        for mirror in orients:
+            trips = cm.tripcount(cls_, w.m, w.k, w.n, w.d_mk, w.d_kn,
+                                 mirror)
+            bound = cm.parallelism_bound(cls_, w.m, w.k, w.n, mirror)
+            p_eff = np.minimum(pes_f[:, j], bound)
+            cycles = np.ceil(trips / np.maximum(p_eff, 1.0))
+            a, b, out = cm.operand_components(cls_, w.m, w.k, w.n,
+                                              w.d_mk, w.d_kn, mirror)
+            nbytes = a + b + out
+            if reuse:
+                nbytes = nbytes + cm.restream_extra_bytes(
+                    cls_, a, b, out, mirror,
+                    scratch_bytes=batch.scratchpad_bytes)
+            mem_s = nbytes / bw
+            runtime_s = np.maximum(
+                np.maximum(cycles / hwdb.FREQ_HZ, mem_s), 1e-12)
+            powered = np.where(cycles > 0.0, power_pe * pes_f[:, j], 0.0)
+            energy_pj = (powered * (runtime_s * hwdb.FREQ_HZ)
+                         + nbytes * e_byte + effectual * hwdb.E_MAC)
+            consider(runtime_s, energy_pj, present)
+
+    # Template sweep: coarse grid for everyone; the fine grid only for
+    # multi-cluster candidates (the scalar path appends it only when
+    # refine=True and len(config.clusters) > 1).
+    fracs = tuple(fracs)
+    triples = list(itertools.product(fracs, fracs, fracs))
+    t_coarse = len(triples)
+    multi = (batch.pes > 0).sum(axis=1) > 1
+    use_fine = refine and bool(multi.any())
+    if use_fine:
+        triples += list(itertools.product(_FRACS_FINE, _FRACS_FINE,
+                                          _FRACS_FINE))
+    fm = np.array([x[0] for x in triples])
+    fk = np.array([x[1] for x in triples])
+    fn = np.array([x[2] for x in triples])
+    rt, en, valid = batch_template_eval_joint(batch, w, fm, fk, fn)
+    if use_fine:
+        valid[:, t_coarse:] &= multi[:, None]
+    rt_m = np.where(valid, rt, np.inf)
+    rt_min = rt_m.min(axis=1)
+    en_m = np.where(valid & (rt_m == rt_min[:, None]), en, np.inf)
+    ti = np.argmin(en_m, axis=1)   # first (runtime, energy) min per row
+    rows = np.arange(n)
+    consider(rt_m[rows, ti], en_m[rows, ti], valid.any(axis=1))
+    return best_rt, best_en
+
+
 def schedule_single_kernel(
     config: cm.AcceleratorConfig,
     w: Workload,
@@ -365,6 +552,19 @@ def clear_schedule_cache() -> None:
     (tests and long-lived servers call this between model changes)."""
     _schedule_single_kernel_memo.cache_clear()
     _best_on_cluster.cache_clear()
+
+
+def schedule_cache_info() -> Dict[str, Dict[str, int]]:
+    """Hit/miss/size of the process-wide schedule memo caches — the
+    single-kernel schedule LRU and the per-(cluster, task) best-mapping
+    LRU — in one dict."""
+    out: Dict[str, Dict[str, int]] = {}
+    for name, fn in (("single_kernel_memo", _schedule_single_kernel_memo),
+                     ("best_on_cluster", _best_on_cluster)):
+        ci = fn.cache_info()
+        out[name] = {"hits": ci.hits, "misses": ci.misses,
+                     "maxsize": ci.maxsize, "currsize": ci.currsize}
+    return out
 
 
 def _schedule_single_kernel_impl(

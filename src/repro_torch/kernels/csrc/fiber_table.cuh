@@ -1,5 +1,7 @@
-// Scatter of column fibers into a dense f32 table, shared by the sparse
-// bodies of SpMM (spmm.cu) and the inner-product SpGEMM (spgemm_inner.cu).
+// Scatters of fibers into a dense f32 table for the sparse bodies: of
+// column fibers into table columns, shared by SpMM (spmm.cu) and the
+// inner-product SpGEMM (spgemm_inner.cu), and of fibers into table rows,
+// for the Gustavson SpGEMM (spgemm_gustavson.cu; at the end of this file).
 //
 // N fibers (ids -> K, capacity cap, PAD_ID = -1 padding) land in a (K, N)
 // table: entry c of fiber f goes to table[ids[f, c], f]. The table must be
@@ -83,6 +85,44 @@ cudaError_t launch_fiber_table_scatter(const TV* vals, const int* ids,
   const int gy = std::min(256, (cap + FT_SLOTS - 1) / FT_SLOTS);
   fiber_table_scatter_kernel<TV><<<dim3(gx, gy), FT_THREADS, 0, stream>>>(
       vals, ids, chunk_counts, table, K, N, cap, bn, fc);
+  return cudaGetLastError();
+}
+
+// Row scatter: F fibers (ids -> W, capacity cap) land in an (F, W) table,
+// entry c of fiber f at table[f, ids[f, c]]; the table must be zeroed
+// beforehand. One warp per fiber, lanes over its slots: a fiber owns its
+// table row and its ids are unique, so no atomics, and a warp writes into
+// one row (consecutive columns where the fiber's ids ascend densely).
+// Every slot is read once (the input's size) and ids outside [0, W),
+// PAD_ID among them, are skipped, so slots out of order need nothing
+// more.
+constexpr int RS_THREADS = 256;
+
+template <typename TV>
+__global__ void __launch_bounds__(RS_THREADS) fiber_row_scatter_kernel(
+    const TV* __restrict__ vals, const int* __restrict__ ids,
+    float* __restrict__ table, int F, int W, int cap) {
+  const int f = blockIdx.x * (RS_THREADS / 32) + threadIdx.x / 32;
+  if (f >= F) return;
+  const int lane = threadIdx.x % 32;
+  const int* fid = ids + (size_t)f * cap;
+  const TV* fv = vals + (size_t)f * cap;
+  float* row = table + (size_t)f * W;
+  for (int s = lane; s < cap; s += 32) {
+    const unsigned id = (unsigned)fid[s];
+    if (id < (unsigned)W) row[id] = to_f32(fv[s]);
+  }
+}
+
+// Launch the row scatter over all F fibers; returns cudaGetLastError().
+template <typename TV>
+cudaError_t launch_fiber_row_scatter(const TV* vals, const int* ids,
+                                     float* table, int F, int W, int cap,
+                                     cudaStream_t stream) {
+  if (F <= 0 || cap <= 0) return cudaSuccess;
+  constexpr int kFibers = RS_THREADS / 32;
+  fiber_row_scatter_kernel<TV><<<(F + kFibers - 1) / kFibers, RS_THREADS, 0,
+                                 stream>>>(vals, ids, table, F, W, cap);
   return cudaGetLastError();
 }
 

@@ -4,8 +4,9 @@
 Handles the device (the card unless the caller passes ``device="cpu"``),
 padding to block multiples exactly as the JAX package pads (dense zero-pad;
 ELL fiber pad with PAD_ID sentinels; minor-size pad is metadata only;
-power-of-two capacity buckets), so launch shapes equal the JAX side's, and
-the class-indexed ``DISPATCH`` the executor uses.
+power-of-two capacity buckets), so launch shapes equal the JAX side's, the
+class-indexed ``DISPATCH`` the executor uses, and ``op_cost``, the
+modelled cost of one dispatch.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.costmodel import SW_KIND, sw_kernel_cost
 from repro_torch.formats.ell import (
     PAD_ID,
     EllMatrix,
@@ -22,6 +24,7 @@ from repro_torch.formats.ell import (
 )
 from repro_torch.formats.taxonomy import DataflowClass
 from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import spgemm_gustavson as _gust
 from repro_torch.kernels import spgemm_inner as _inner
 from repro_torch.kernels import spgemm_outer as _outer
 from repro_torch.kernels import spmm as _spmm
@@ -126,6 +129,16 @@ def spgemm_inner_operands(a: EllMatrix, b: EllMatrix, *,
     return _pad_ell(a, bm, bk), _pad_ell(b, bn, bk), bm, bn
 
 
+def spgemm_gustavson_operands(a: EllMatrix, b: EllMatrix, *,
+                              bm: Optional[int] = None,
+                              bn: Optional[int] = None, bk: int = 128):
+    """The padded operands and blocks :func:`spgemm_gustavson` hands its
+    kernel: ``(ap, bp, bm, bn)``, A's K fibers to ``bk`` and its minor M to
+    ``bm`` multiples, B's N fibers to ``bn`` and its minor K to ``bk``."""
+    bm, bn = _auto_block(a.shape[0], bm), _auto_block(b.shape[1], bn)
+    return _pad_ell(a, bk, bm), _pad_ell(b, bn, bk), bm, bn
+
+
 # --------------------------------------------------------------------- ops
 def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
          bk: int = 128, device=None):
@@ -182,18 +195,16 @@ def spgemm_inner(a: EllMatrix, b: EllMatrix, *, bm: Optional[int] = None,
                                method=method)[:m, :n]
 
 
-def _not_ported(kernel: str, row: int):
-    def op(*args, **kwargs):
-        raise NotImplementedError(
-            f"{kernel} is not ported to repro_torch yet: ROADMAP.md, queue "
-            f"2 (TPU kernels to port), row {row}")
-    op.__name__ = kernel
-    return op
-
-
-spgemm_gustavson = _not_ported(
-    "spgemm_gustavson (kernels/spgemm_gustavson.py:_gustavson_sparse_kernel, "
-    "_gustavson_reference_kernel)", 8)
+def spgemm_gustavson(a: EllMatrix, b: EllMatrix, *, bm: Optional[int] = None,
+                     bn: Optional[int] = None, bk: int = 128,
+                     method: str = "auto", device=None):
+    """(U_K C_M, U_N C_K) MatRaptor-like Gustavson SpGEMM."""
+    dev = resolve_device(device)
+    a, b = a.to(dev), b.to(dev)
+    m, n = a.shape[0], b.shape[1]
+    ap, bp, bm, bn = spgemm_gustavson_operands(a, b, bm=bm, bn=bn, bk=bk)
+    return _gust.spgemm_gustavson(ap, bp, bm=bm, bn=bn, bk=bk,
+                                  method=method)[:m, :n]
 
 
 #: Class-indexed dispatch used by the executor (core/hetero_matmul).
@@ -210,3 +221,33 @@ def dispatch(cls: DataflowClass, a, b, **kw):
     """Run one matmul on the sub-accelerator class ``cls`` (operands must
     already be in REQUIRED_FORMATS[cls])."""
     return DISPATCH[cls](a, b, **kw)
+
+
+def op_cost(cls: DataflowClass, a, b, *, bm: Optional[int] = None,
+            bn: Optional[int] = None, method: str = "auto",
+            mirror: bool = False):
+    """Modelled cost of ``dispatch(cls, a, b)`` — the achieved-intensity
+    hook. Returns a :class:`repro_torch.core.costmodel.SwKernelCost` whose
+    ``flops``/``bytes`` give the modelled roofline intensity and whose
+    ``mac_eq`` is the JAX package's time proxy (the same numbers both
+    packages report).
+
+    Reads the true nonzero counts (``EllMatrix.nnz``) on the host, a sync
+    per compressed operand, so call it beside the hot path, never in it.
+    """
+    if mirror:   # spmm_mirror(a, b) == spmm(bᵀ, aᵀ)ᵀ: cost the transpose
+        at = dataclasses.replace(a, shape=(a.shape[1], a.shape[0]),
+                                 major_axis=1 - a.major_axis)
+        return op_cost(cls, b.T, at, bm=bn, bn=bm, method=method)
+
+    m = a.shape[0]
+    k = a.shape[1]
+    n = b.shape[1]
+    kw = dict(bm=_auto_block(m, bm), bn=_auto_block(n, bn), method=method)
+    if isinstance(a, EllMatrix):
+        kw["nnz_a"] = float(a.nnz())
+        kw["cap_a"] = a.cap
+    if isinstance(b, EllMatrix):
+        kw["nnz_b"] = float(b.nnz())
+        kw["cap_b"] = b.cap
+    return sw_kernel_cost(SW_KIND[cls], m, k, n, **kw)

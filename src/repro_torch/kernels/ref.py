@@ -1,5 +1,5 @@
 """Dense oracles for the ported dataflow classes — the port of
-``repro.kernels.ref``: the paper's TACO loop nests (Fig 2a-2d) as
+``repro.kernels.ref``: the paper's TACO loop nests (Fig 2a-2e) as
 vectorised torch on whatever device the operands lie on. Tests hold the
 kernels' plain versions against these; nothing on the executor's path
 calls them.
@@ -86,4 +86,21 @@ def spgemm_outer_ref(a: EllMatrix, b: EllMatrix) -> torch.Tensor:
     ea = _scatter_dense(a, acc)                    # (K, M)
     eb = _scatter_dense(b, acc)                    # (K, N)
     out = (ea[:, :, None] * eb[:, None, :]).sum(dim=0)
+    return out.to(torch.promote_types(a.vals.dtype, b.vals.dtype))
+
+
+def spgemm_gustavson_ref(a: EllMatrix, b: EllMatrix) -> torch.Tensor:
+    """(U_K C_M, U_N C_K) — MatRaptor-like column-wise-product SpGEMM: for
+    each output column n, stream B's column fiber; each nonzero ``B[k, n]``
+    scales A's column fiber k (compressed over M). A scatters to a dense
+    ``(K, M)`` table and B's coordinates gather its rows."""
+    assert a.major_axis == 1 and b.major_axis == 1
+    assert a.shape[1] == b.shape[0]
+    acc = _acc_dtype(a.vals.dtype, b.vals.dtype)
+    ea = _scatter_dense(a, acc)                    # (K, M)
+    live = b.ids >= 0
+    safe = torch.where(live, b.ids, 0).long()
+    cols = ea[safe]                                # (N, C, M)
+    bv = torch.where(live, b.vals.to(acc), 0)
+    out = (cols * bv[..., None]).sum(dim=1).T
     return out.to(torch.promote_types(a.vals.dtype, b.vals.dtype))

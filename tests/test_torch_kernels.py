@@ -1,6 +1,7 @@
 """Parity of the PyTorch port's ops (``repro_torch.kernels.ops``) with the
 JAX package's (``repro.kernels.ops``) for the dense GEMM, SpMM, mirrored
-SpMM, and the inner- and outer-product SpGEMMs: the same numpy operands go
+SpMM, and the inner- and outer-product SpGEMMs (the Gustavson SpGEMM's are
+in ``tests/test_torch_gustavson.py``): the same numpy operands go
 through the port's plain versions on the CPU and through the JAX Pallas
 kernels in interpret mode, as ``tests/test_kernels.py`` runs them.
 Tolerances are that file's: f32 ``rtol=atol=1e-4``, bf16 ``2e-2``.
@@ -264,10 +265,28 @@ def test_auto_routes_to_the_same_body(monkeypatch, op, shape, density):
 
 
 def test_unported_classes_raise():
+    """No dataflow class is left unported: ``DISPATCH`` has an op for
+    every class, and each runs (no ``NotImplementedError``) and gives the
+    product on operands in its formats."""
     from repro_torch.formats.taxonomy import DataflowClass
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tops.dispatch(DataflowClass.SPGEMM_GUSTAVSON, None, None)
+    assert set(tops.DISPATCH) == set(DataflowClass)
+    rng = np.random.default_rng(1)
+    a = sparse(rng, 64, 48, 0.3)
+    b = sparse(rng, 48, 40, 0.3)
+    axes = {DataflowClass.GEMM: (None, None),
+            DataflowClass.SPMM: (None, 1),
+            DataflowClass.SPGEMM_INNER: (0, 1),
+            DataflowClass.SPGEMM_OUTER: (1, 0),
+            DataflowClass.SPGEMM_GUSTAVSON: (1, 1)}
+    for cls, (ax_a, ax_b) in axes.items():
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        if ax_a is not None:
+            ta = tell.dense_to_ell(ta, ax_a, exact_cap(a, ax_a))
+        if ax_b is not None:
+            tb = tell.dense_to_ell(tb, ax_b, exact_cap(b, ax_b))
+        got = tops.dispatch(cls, ta, tb, device="cpu")
+        np.testing.assert_allclose(got.numpy(), a @ b, **tol("float32"))
 
 
 def test_cpu_wrappers_never_launch():

@@ -4,8 +4,9 @@ scheduling policies and their queue statistics, the event-stepped
 ``execute_many_kernel_schedule``, ``hetero_many_matmul``) on the same
 numpy operands, with the JAX kernels in interpret mode.
 
-Executor parity runs on configs without a Gustavson cluster (that kernel is
-not ported yet); scheduler parity runs on any config.
+Scheduler parity runs on every config, ``aespa_opt`` among them; executor
+parity on a small four-cluster config and on ``aespa_opt`` (whose queues
+put tasks on its Gustavson cluster).
 """
 import dataclasses
 import math
@@ -62,6 +63,8 @@ def config_pair(name):
         return jdse.aespa_equal4(), tdse.aespa_equal4()
     if name == "aespa_equal4_inf":
         return jdse.aespa_equal4(math.inf), tdse.aespa_equal4(math.inf)
+    if name == "aespa_opt":
+        return jdse.aespa_opt(), tdse.aespa_opt()
     if name == "json_small":
         jcfg = small_aespa_json()
         return jcfg, tcm.config_from_json(jcm.config_to_json(jcfg))
@@ -96,7 +99,7 @@ def canon(ms):
 
 # --------------------------------------------------------------- scheduler
 @pytest.mark.parametrize("case", ["aespa_equal4", "aespa_equal4_inf",
-                                  "json_small", "staggered"])
+                                  "json_small", "staggered", "aespa_opt"])
 @pytest.mark.parametrize("policy", POLICIES)
 def test_schedule_many_kernels_matches_jax(policy, case):
     """Table I on each config, and twice over with staggered arrivals:
@@ -303,6 +306,36 @@ def test_hetero_many_matmul_matches_jax():
     # Cycle counts round up, so a last-bit density difference can move the
     # makespan by a cycle.
     assert abs(tms.makespan_cycles - jms.makespan_cycles) <= 1.0
+    for (a, b), g, w in zip(pairs, got, want):
+        np.testing.assert_allclose(as_np(g), as_np(w), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(as_np(g), a @ b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_aespa_opt_queue_matches_jax(policy):
+    """The Table I queue, scaled down, on the searched design: placements
+    equal to the JAX package's, and every task's output equal to the JAX
+    executor's and to ``a @ b``. Under ``lpt`` and ``optimized`` gnmt runs
+    whole on the Gustavson cluster."""
+    jcfg, tcfg = config_pair("aespa_opt")
+    pairs, jtasks = [], []
+    for jw in jwl.TABLE_I:
+        a, b, dims = jwl.synthesize(jw, seed=1, max_elems=1 << 14)
+        pairs.append((a, b))
+        jtasks.append(jwl.Workload(jw.name, jw.application, *dims, jw.d_mk,
+                                   jw.d_kn))
+    jms = jsched.schedule_many_kernels(jcfg, jtasks, policy=policy)
+    tms = tsched.schedule_many_kernels(tcfg, [twin(w) for w in jtasks],
+                                       policy=policy)
+    assert canon(tms) == canon(jms)
+    gust = {a.workload.name for a in tms.assignments
+            if a.cls == TClass.SPGEMM_GUSTAVSON}
+    if policy in ("lpt", "optimized"):
+        assert "gnmt" in gust
+    want = jhm.execute_many_kernel_schedule(jax_pairs(pairs, "float32"),
+                                            jms, interpret=True, block=64)
+    got = thm.execute_many_kernel_schedule(torch_pairs(pairs, "float32"),
+                                           tms, block=64, device="cpu")
     for (a, b), g, w in zip(pairs, got, want):
         np.testing.assert_allclose(as_np(g), as_np(w), rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(as_np(g), a @ b, rtol=1e-4, atol=1e-4)

@@ -37,6 +37,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 NAMES = [w.name for w in jwl.TABLE_I]
 CONFIGS = {
     "aespa_equal4": (jdse.aespa_equal4, tdse.aespa_equal4),
+    "aespa_opt": (jdse.aespa_opt, tdse.aespa_opt),
     "homog_spmm": (lambda: jcm.homogeneous(jcm.DataflowClass.SPMM),
                    lambda: tcm.homogeneous(TClass.SPMM)),
     "homog_outer": (lambda: jcm.homogeneous(jcm.DataflowClass.SPGEMM_OUTER),
@@ -134,12 +135,27 @@ def mirrored_partitions(pkg_sched, cls_enum, m, k, n):
     )
 
 
+def gustavson_split_partitions(pkg_sched, cls_enum, m, k, n):
+    """aespa_opt's synthetic_dense pattern, scaled down: GEMM over
+    k[0:7K/8] on cluster 0, Gustavson over k[7K/8:K] on cluster 3."""
+    h = k * 7 // 8
+    return (
+        pkg_sched.Partition(pkg_sched.Region(0, m, 0, h, 0, n),
+                            cls_enum.GEMM, 0),
+        pkg_sched.Partition(pkg_sched.Region(0, m, h, k, 0, n),
+                            cls_enum.SPGEMM_GUSTAVSON, 3),
+    )
+
+
 def hand_schedules(kind, dims, d_mk, d_kn):
     make = {"k_split": k_split_partitions,
-            "mirrored": mirrored_partitions}[kind]
+            "mirrored": mirrored_partitions,
+            "gustavson_split": gustavson_split_partitions}[kind]
     jw = jwl.Workload(kind, "test", *dims, d_mk, d_kn)
     tw = twl.Workload(kind, "test", *dims, d_mk, d_kn)
     jcfg, tcfg = jdse.aespa_equal4(), tdse.aespa_equal4()
+    if kind == "gustavson_split":
+        jcfg, tcfg = jdse.aespa_opt(), tdse.aespa_opt()
     jparts = make(jsched, jcm.DataflowClass, *dims)
     tparts = make(tsched, TClass, *dims)
     js = jsched.KernelSchedule(jw, jcfg, jparts,
@@ -149,9 +165,10 @@ def hand_schedules(kind, dims, d_mk, d_kn):
     return js, ts
 
 
-def run_both(a, b, js, ts):
-    want = np.asarray(jhm.execute_schedule(a, b, js, block=64), np.float32)
-    got = execute_schedule(a, b, ts, block=64, device="cpu")
+def run_both(a, b, js, ts, block=64):
+    want = np.asarray(jhm.execute_schedule(a, b, js, block=block),
+                      np.float32)
+    got = execute_schedule(a, b, ts, block=block, device="cpu")
     assert got.shape == (a.shape[0], b.shape[1])
     return got, want
 
@@ -175,14 +192,40 @@ def test_execute_schedule_matches_jax(name, max_elems):
     np.testing.assert_allclose(got.numpy(), a @ b, **TOL)
 
 
+@pytest.mark.parametrize("name,max_elems", [
+    ("citeseer", 1 << 17), ("gnmt", 1 << 14), ("gnmt", 1 << 20),
+    ("speech", 1 << 21),
+])
+def test_execute_schedule_aespa_opt_matches_jax(name, max_elems):
+    """Table I workloads, scaled down, on their own ``aespa_opt``
+    schedules: Gustavson whole (citeseer, small gnmt), and K-splits whose
+    Gustavson partial merges with inner SpGEMM and SpMM (gnmt, speech).
+    synthetic_dense's GEMM + Gustavson split is hand-built below: the
+    scheduler makes it only from 2048×2048×1024 up, where a dense f32 sum
+    over K drifts past the elementwise 1e-4 in any summation order."""
+    a, b, dims = twl.synthesize(twl.BY_NAME[name], seed=0,
+                                max_elems=max_elems)
+    jw, tw = workload_pair(name, dims)
+    js = jsched.schedule_single_kernel(jdse.aespa_opt(), jw)
+    ts = tsched.schedule_single_kernel(tdse.aespa_opt(), tw)
+    assert_same_schedule(js, ts)
+    assert TClass.SPGEMM_GUSTAVSON in {p.cls for p in ts.partitions}
+    got, want = run_both(a, b, js, ts, block=128)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), a @ b, **TOL)
+
+
 @pytest.mark.parametrize("kind,dims,d_mk,d_kn", [
     ("k_split", (192, 256, 160), 1.0, 1.0),
     ("k_split", (150, 200, 130), 0.2, 0.1),
     ("mirrored", (200, 180, 150), 0.05, 0.3),
+    ("gustavson_split", (192, 256, 160), 1.0, 1.0),
+    ("gustavson_split", (150, 300, 130), 0.3, 0.2),
 ])
 def test_hand_built_schedules_match_jax(kind, dims, d_mk, d_kn):
-    """A K-split whose two partials merge into one output tile, and a
-    mirrored SpMM beside a plain one."""
+    """K-splits whose two partials merge into one output tile (SpMM and
+    outer product, GEMM and Gustavson), and a mirrored SpMM beside a plain
+    one."""
     rng = np.random.default_rng(7)
     m, k, n = dims
     a = (rng.standard_normal((m, k))
@@ -190,7 +233,7 @@ def test_hand_built_schedules_match_jax(kind, dims, d_mk, d_kn):
     b = (rng.standard_normal((k, n))
          * (rng.random((k, n)) < d_kn)).astype(np.float32)
     js, ts = hand_schedules(kind, dims, d_mk, d_kn)
-    assert ts.k_split == (kind == "k_split")
+    assert ts.k_split == (kind != "mirrored")
     assert_same_schedule(js, ts)
     got, want = run_both(a, b, js, ts)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
@@ -233,6 +276,9 @@ def test_entry_points_default_to_the_card():
         tops.gemm(torch.from_numpy(a), torch.from_numpy(b))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tops.spgemm_inner(a_ell, b_ell)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tops.spgemm_gustavson(tell.dense_to_ell(torch.from_numpy(a), 1, 8),
+                              b_ell)
     ms = tsched.schedule_many_kernels(tdse.aespa_equal4(), [tw])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         execute_many_kernel_schedule([(a, b)], ms)
