@@ -18,10 +18,15 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    blocks and windows, a fiber at exactly its capacity, a K tile live on
    one side only, fibers whose live slots are out of order, both bodies
    forced on one pair, bfloat16; the Gustavson ones against the dense
-   oracle ``ref.spgemm_gustavson_ref``), with the kernel's, the plain
-   version's and ``torch.matmul``'s times (CUDA events, median after
-   warm-up; one timing for a call over 100 ms) beside the least time the
-   card could take. The body "auto" passed over is timed too.
+   oracle ``ref.spgemm_gustavson_ref``; for the outer product also an
+   all-zero A, whose output must be all zero, an M tile with 37 live K
+   fibers, a dense A against a sparse B, and a dense B), with the kernel's,
+   the plain version's and ``torch.matmul``'s times (CUDA events, median
+   after warm-up; one timing for a call over 100 ms) beside the least time
+   the card could take. The body "auto" passed over is timed too. Each outer
+   call, both bodies, must give the same bits twice and make no host sync
+   (PyTorch's sync debug mode), and a profile gives each outer launch's
+   kernel time without its wrapper's pre-pass.
 3. The single-kernel path: ``schedule_single_kernel(aespa_equal4())`` then
    ``execute_schedule`` on the card for the nine Table I workloads (and
    citeseer reduced so that the outer product's sparse body runs), each
@@ -201,27 +206,98 @@ def profile_run(fn, top: int = 6) -> dict:
             "top_device_ms": [[n, ms] for n, ms in ranked[:top]]}
 
 
+def no_sync_call(fn):
+    """``fn()`` under PyTorch's sync debug mode: its result and where it
+    made a host sync (``.item()``, ``nonzero``, a copy to the host, ...),
+    each as the innermost Python frames of the warning."""
+    import traceback
+    import warnings
+
+    syncs = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = traceback.extract_stack()[-7:-1]
+            syncs.append(" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                    for f in reversed(stack)))
+
+    torch.cuda.synchronize()
+    # Switching the mode on warns once by itself: only fn() is watched.
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, syncs
+
+
+def kernel_only_ms(call, kernel_names, tries: int = 3) -> float:
+    """Device ms of the one kernel whose name holds one of
+    ``kernel_names`` that ``call`` launches, without its wrapper's
+    pre-pass, from a profile of the call. The profiler now and then drops
+    a kernel event (once in seven calls of one profile), so a profile that
+    does not show exactly one is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        spans = [e.time_range for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(n in e.name for n in kernel_names)]
+        if len(spans) == 1:
+            return (spans[0].end - spans[0].start) / 1e3
+    raise AssertionError(f"profile: not one kernel of {kernel_names} in "
+                         f"{tries} profiles")
+
+
 class KernelCase:
     """One kernel call at fixed operands: the kernel, its plain version,
     the library yardstick, and the work the data needs. ``other`` is
     ``(name, call)`` of the body "auto" did not pick, or None."""
 
     def __init__(self, body, label, kernel, plain, library,
-                 in_bytes, out_bytes, flops, dtype, other=None):
+                 in_bytes, out_bytes, flops, dtype, other=None,
+                 repeat=False, want_zero=False):
         self.body, self.label = body, label
         self.kernel, self.plain, self.library = kernel, plain, library
         self.other = other
         self.bound_ms, self.bound_by = bound(in_bytes + out_bytes, flops)
         self.dtype = dtype
+        self.repeat, self.want_zero = repeat, want_zero
 
     def check(self, reps: int = 0) -> dict:
+        """Error against the plain version (and, with ``reps``, the times);
+        with ``repeat``, each body must give the same bits twice and make
+        no host sync; with ``want_zero``, the kernel's output must be all
+        zero."""
         want = self.plain()
         tol = TOL[str(self.dtype).replace("torch.", "")]
-        err = self._error(self.kernel(), want)
+        got = self.kernel()
+        err = self._error(got, want)
         row = {"name": self.body, "case": self.label, "max_abs_err": err,
                "tol": tol, "bound_ms": self.bound_ms,
                "bound_by": self.bound_by}
         bad = [self.body] if err is None else []
+        if self.want_zero and bool(got.any()):
+            bad.append(self.body + " (output not all zero)")
+        if self.repeat:
+            calls = [(self.body, self.kernel, got)]
+            if self.other is not None:
+                calls.append((*self.other, None))
+            for name, call, first in calls:
+                first = call() if first is None else first
+                again, syncs = no_sync_call(call)
+                if not torch.equal(first, again):
+                    bad.append(name + " (two runs differ)")
+                if syncs:
+                    bad.append(f"{name} (host syncs at {syncs})")
+        del got
         if reps:
             row["ms"] = time_ms(self.kernel, reps)
             row["plain_ms"] = time_ms(self.plain, max(1, reps // 2))
@@ -235,8 +311,8 @@ class KernelCase:
                     bad.append(name)
         log("kernel " + json.dumps(row))
         if bad:
-            raise AssertionError(f"{bad} ({self.label}) disagree with the "
-                                 "plain version")
+            raise AssertionError(f"{bad} ({self.label}) failed: against "
+                                 "the plain version unless noted")
         return row
 
     def _error(self, got, want):
@@ -273,7 +349,7 @@ def spmm_case(label, ap, bp, bn, method="auto"):
                lambda: spmm_mod.spmm(ap, bp, bn=bn, method=other)))
 
 
-def outer_case(label, ap, bp, bm, bn, method="auto"):
+def outer_case(label, ap, bp, bm, bn, method="auto", want_zero=False):
     m, k = ap.shape
     n = bp.shape[1]
     chosen = outer_mod.resolve_method(method, m, k, n)
@@ -293,7 +369,8 @@ def outer_case(label, ap, bp, bm, bn, method="auto"):
         flops=2.0 * pairs, dtype=ap.vals.dtype,
         other=("outer_" + other,
                lambda: outer_mod.spgemm_outer(ap, bp, bm=bm, bn=bn,
-                                              method=other)))
+                                              method=other)),
+        repeat=True, want_zero=want_zero)
 
 
 def gemm_case(label, ap, bp, dims=None):
@@ -422,8 +499,10 @@ def edge_cases():
     bfloat16: an all-zero fiber block (SpMM, inner, Gustavson) or window
     (outer, Gustavson), an all-zero A block (inner), a fiber at exactly its
     capacity, K tiles live on one side only (inner), ragged GEMM dims and
-    ragged Gustavson M, K and N, live slots out of order (inner,
-    Gustavson), and both bodies of each sparse kernel forced on one
+    ragged Gustavson M, K and N, live slots out of order (inner, outer,
+    Gustavson), an all-zero A, an M tile whose live-K count is not a
+    multiple of the kernel's chunk, a dense A against a sparse B and a
+    dense B (outer), and both bodies of each sparse kernel forced on one
     operand pair."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -478,12 +557,14 @@ def edge_cases():
         for method in ("sparse", "reference"):
             cases.append(inner_case(f"edge {name} shuffled", *shuffled, bm,
                                     bn, method=method))
-        # Outer: A's M window 128..255 empty; fiber 5 of A exactly at cap.
+        # Outer, each case with both bodies forced: A's M window 128..255
+        # and B's N window 128..255 empty; fiber 5 of A exactly at cap.
         a = sparse(384, 260, 0.01)
         a[128:256, :] = 0
         a[:, 5] = 0
         a[torch.arange(0, 384, 23)[:16], 5] = -2.0
         b = sparse(260, 320, 0.05)
+        b[:, 128:256] = 0
         a_ell = ell.dense_to_ell(a.to(dtype), 1, 16, strict=True)
         b_ell = ell.dense_to_ell(b.to(dtype), 0,
                                  int((b != 0).sum(1).max()), strict=True)
@@ -491,6 +572,58 @@ def edge_cases():
             ap, bp, bm, bn = ops.spgemm_outer_operands(a_ell, b_ell, bm=128,
                                                        bn=128)
             cases.append(outer_case(f"edge {name}", ap, bp, bm, bn,
+                                    method))
+        # The same pair with live slots shuffled in both operands.
+        shuffled = [shuffle_live_slots(e, gen) for e in (ap, bp)]
+        for method in ("sparse", "reference"):
+            cases.append(outer_case(f"edge {name} shuffled", *shuffled, bm,
+                                    bn, method))
+        # An all-zero A: the output must be all zero.
+        zero_a = ell.dense_to_ell(torch.zeros(384, 260, dtype=dtype,
+                                              device="cuda"), 1, 8)
+        for method in ("sparse", "reference"):
+            ap, bp, bm, bn = ops.spgemm_outer_operands(zero_a, b_ell, bm=128,
+                                                       bn=128)
+            cases.append(outer_case(f"edge {name} all-zero A", ap, bp, bm,
+                                    bn, method, want_zero=True))
+        # M tile 0 live in exactly 37 K fibers: a full chunk of 32 and a
+        # ragged one of 5.
+        a = sparse(384, 260, 0.01)
+        a[:128, :] = 0
+        a[torch.arange(37) * 3, torch.arange(37) * 7] = 0.75
+        a_ell = ell.dense_to_ell(a.to(dtype), 1, int((a != 0).sum(0).max()),
+                                 strict=True)
+        ap, bp, bm, bn = ops.spgemm_outer_operands(a_ell, b_ell, bm=128,
+                                                   bn=128)
+        if int(outer_mod.live_k_lists(ap)[1][0]) != 37:
+            raise AssertionError("outer edge case: M tile 0 not 37 live k")
+        for method in ("sparse", "reference"):
+            cases.append(outer_case(f"edge {name} 37 live k", ap, bp, bm, bn,
+                                    method))
+        # The sparse side is B, the dense side A: every k live in every M
+        # tile, most chunks without a B entry in the window.
+        a = sparse(384, 260, 1.0)
+        b = sparse(260, 320, 0.01)
+        a_ell = ell.dense_to_ell(a.to(dtype), 1, 384, strict=True)
+        b_ell = ell.dense_to_ell(b.to(dtype), 0,
+                                 int((b != 0).sum(1).max()), strict=True)
+        for method in ("sparse", "reference"):
+            ap, bp, bm, bn = ops.spgemm_outer_operands(a_ell, b_ell, bm=128,
+                                                       bn=128)
+            cases.append(outer_case(f"edge {name} dense A, sparse B", ap, bp,
+                                    bm, bn, method))
+        # Dense B: every fiber's ids are its slots (one cut short), with PAD
+        # slots after them from the capacity bucket; no window is searched.
+        a = sparse(384, 260, 0.02)
+        b = sparse(260, 320, 1.0)
+        b[7, 100:] = 0
+        a_ell = ell.dense_to_ell(a.to(dtype), 1, int((a != 0).sum(0).max()),
+                                 strict=True)
+        b_ell = ell.dense_to_ell(b.to(dtype), 0, 320, strict=True)
+        for method in ("sparse", "reference"):
+            ap, bp, bm, bn = ops.spgemm_outer_operands(a_ell, b_ell, bm=128,
+                                                       bn=128)
+            cases.append(outer_case(f"edge {name} dense B", ap, bp, bm, bn,
                                     method))
         # Gustavson, each case against the dense oracle: ragged M, K and N
         # straight into the kernels (the blocks shrink to divide them).
@@ -693,10 +826,24 @@ def main() -> int:
                          *pairs[asg.task_index],
                          [pp.partition for pp in asg.placed])
                         for asg in ms.assignments]
+    outer_rows = []
     for label, a_d, b_d, partitions in launch_sets:
         for case in partition_cases(label, a_d, b_d, partitions, seen):
             rows.append(case.check(reps=5))
+            if case.body.startswith("outer_"):
+                outer_rows.append((case, rows[-1]))
         torch.cuda.empty_cache()
+    # The outer kernels alone, without their wrappers' pre-passes: both
+    # bodies at every outer launch shape.
+    names = ("outer_reference_kernel", "outer_merge_kernel")
+    for case, row in outer_rows:
+        row["kernel_only_ms"] = kernel_only_ms(case.kernel, names)
+        row["other_kernel_only_ms"] = kernel_only_ms(case.other[1], names)
+        log("outer " + json.dumps({k: row[k] for k in (
+            "name", "case", "ms", "kernel_only_ms", "other_body",
+            "other_ms", "other_kernel_only_ms", "library_ms",
+            "bound_ms")}))
+    del outer_rows
     for case in edge_cases():
         case.check()
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
@@ -802,7 +949,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": top["library_ms"], "case": top["case"]})
+            "library_ms": top["library_ms"], "case": top["case"],
+            **({"kernel_only_ms": top["kernel_only_ms"]}
+               if "kernel_only_ms" in top else {})})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,8 +23,7 @@ namespace rt {
 template <typename T>
 int gemm(const T* a, const T* b, T* out, int M, int K, int N,
          cudaStream_t stream) {
-  launch_tiled_gemm<T, T, false, T>(a, b, out, M, N, K, nullptr, 1, nullptr,
-                                    1, stream);
+  launch_tiled_gemm<T, T, T>(a, b, out, M, N, K, nullptr, 1, stream);
   return (int)cudaGetLastError();
 }
 

@@ -40,8 +40,8 @@ int spmm_sparse(const T* a, const T* vals, const int* ids, const int* counts,
   const cudaError_t err = launch_fiber_table_scatter<T>(
       vals, ids, counts, table, K, N, cap, bn, fc, stream);
   if (err != cudaSuccess) return (int)err;
-  launch_tiled_gemm<T, float, false, T>(a, table, out, M, N, K, nullptr, 1,
-                                        counts, bn, stream);
+  launch_tiled_gemm<T, float, T>(a, table, out, M, N, K, counts, bn,
+                                 stream);
   return (int)cudaGetLastError();
 }
 

@@ -1,21 +1,18 @@
 // Shared-memory tiled f32 product: the dense GEMM (gemm.cu) and the
-// contraction step of two sparse bodies (SpMM's A · table, the outer
-// product's table · tableᵀ).
+// contraction step of SpMM's sparse body (A · table).
 //
-// C (M, N) = A (M, K) · B, with B laid out (K, N) when B_NK is false and
-// (N, K) when it is true. A and B are f32 or bf16 (B is the f32 table of
-// the sparse bodies, or the dense operand of the GEMM); bf16 converts to
-// f32 as it is loaded. Each block owns a 128 x 128 output tile; each of
-// its 256 threads keeps an 8 x 8 register block and walks K in steps of 8
-// through shared memory, so every A and B element loaded from device
-// memory feeds 8 FMAs from registers.
+// C (M, N) = A (M, K) · B (K, N). A and B are f32 or bf16 (B is SpMM's f32
+// table, or the dense operand of the GEMM); bf16 converts to f32 as it is
+// loaded. Each block owns a 128 x 128 output tile; each of its 256 threads
+// keeps an 8 x 8 register block and walks K in steps of 8 through shared
+// memory, so every A and B element loaded from device memory feeds 8 FMAs
+// from registers.
 //
-// Tile skipping: row_live holds one count per window of row_win rows (and
-// col_live per col_win columns); nullptr means every window is live. A tile
-// whose rows or columns all fall in dead windows never reads A or B and
-// writes zeros. Inside a live tile, elements of a dead row or column window
-// are written as zero as well, so the result does not depend on the tile
-// size: a dead window is zero, as on the TPU.
+// Column skipping: col_live holds one count per window of col_win columns;
+// nullptr means every window is live. A tile whose columns all fall in dead
+// windows never reads A or B and writes zeros. Inside a live tile, elements
+// of a dead window are written as zero as well, so the result does not
+// depend on the tile size: a dead window is zero, as on the TPU.
 #pragma once
 
 #include "common.cuh"
@@ -28,11 +25,10 @@ __device__ __forceinline__ bool window_live(const int* live, int win, int i) {
   return live == nullptr || live[i / win] > 0;
 }
 
-template <typename TA, typename TB, bool B_NK, typename TO>
+template <typename TA, typename TB, typename TO>
 __global__ void __launch_bounds__(TG_THREADS)
     tiled_gemm_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
                       TO* __restrict__ C, int M, int N, int K,
-                      const int* __restrict__ row_live, int row_win,
                       const int* __restrict__ col_live, int col_win) {
   __shared__ float As[TG_K][TG_M];
   __shared__ float Bs[TG_K][TG_N];
@@ -40,19 +36,9 @@ __global__ void __launch_bounds__(TG_THREADS)
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * TG_M, n0 = blockIdx.x * TG_N;
 
-  // Threads 0..127 probe the tile's rows, 128..255 its columns.
-  bool probe = false;
-  if (tid < TG_M) {
-    const int m = m0 + tid;
-    probe = m < M && window_live(row_live, row_win, m);
-  }
-  const int any_row = __syncthreads_or(probe);
-  probe = false;
-  if (tid >= TG_M) {
-    const int n = n0 + tid - TG_M;
-    probe = n < N && window_live(col_live, col_win, n);
-  }
-  const int any_col = __syncthreads_or(probe);
+  // Threads 0..127 probe the tile's columns.
+  const int any_col = __syncthreads_or(
+      tid < TG_N && n0 + tid < N && window_live(col_live, col_win, n0 + tid));
 
   float acc[8][8];
 #pragma unroll
@@ -60,7 +46,7 @@ __global__ void __launch_bounds__(TG_THREADS)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  if (any_row && any_col) {
+  if (any_col) {
     for (int k0 = 0; k0 < K; k0 += TG_K) {
       {  // A tile: each thread loads 4 consecutive k of one row.
         const int r = tid / 2, kq = (tid % 2) * 4;
@@ -72,16 +58,7 @@ __global__ void __launch_bounds__(TG_THREADS)
               (m < M && k < K) ? to_f32(A[(size_t)m * K + k]) : 0.f;
         }
       }
-      if constexpr (B_NK) {  // (N, K) table: same pattern as A.
-        const int r = tid / 2, kq = (tid % 2) * 4;
-        const int n = n0 + r;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int k = k0 + kq + q;
-          Bs[kq + q][r] =
-              (n < N && k < K) ? to_f32(B[(size_t)n * K + k]) : 0.f;
-        }
-      } else {  // (K, N) table: a warp reads 128 consecutive columns.
+      {  // B tile: a warp reads 128 consecutive columns.
         const int kr = tid / 32, nq = (tid % 32) * 4;
         const int k = k0 + kr;
 #pragma unroll
@@ -112,25 +89,23 @@ __global__ void __launch_bounds__(TG_THREADS)
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + ty * 8 + i;
     if (m >= M) continue;
-    const bool row_ok = window_live(row_live, row_win, m);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + tx * 8 + j;
       if (n >= N) continue;
-      const bool ok = row_ok && window_live(col_live, col_win, n);
+      const bool ok = window_live(col_live, col_win, n);
       C[(size_t)m * N + n] = from_f32<TO>(ok ? acc[i][j] : 0.f);
     }
   }
 }
 
-template <typename TA, typename TB, bool B_NK, typename TO>
+template <typename TA, typename TB, typename TO>
 inline void launch_tiled_gemm(const TA* A, const TB* B, TO* C, int M,
-                              int N, int K, const int* row_live, int row_win,
-                              const int* col_live, int col_win,
+                              int N, int K, const int* col_live, int col_win,
                               cudaStream_t stream) {
   const dim3 grid((N + TG_N - 1) / TG_N, (M + TG_M - 1) / TG_M);
-  tiled_gemm_kernel<TA, TB, B_NK, TO><<<grid, TG_THREADS, 0, stream>>>(
-      A, B, C, M, N, K, row_live, row_win, col_live, col_win);
+  tiled_gemm_kernel<TA, TB, TO><<<grid, TG_THREADS, 0, stream>>>(
+      A, B, C, M, N, K, col_live, col_win);
 }
 
 }  // namespace rt
