@@ -20,13 +20,22 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    forced on one pair, bfloat16; the Gustavson ones against the dense
    oracle ``ref.spgemm_gustavson_ref``; for the outer product also an
    all-zero A, whose output must be all zero, an M tile with 37 live K
-   fibers, a dense A against a sparse B, and a dense B), with the kernel's,
-   the plain version's and ``torch.matmul``'s times (CUDA events, median
-   after warm-up; one timing for a call over 100 ms) beside the least time
-   the card could take. The body "auto" passed over is timed too. Each outer
-   call, both bodies, must give the same bits twice and make no host sync
-   (PyTorch's sync debug mode), and a profile gives each outer launch's
-   kernel time without its wrapper's pre-pass.
+   fibers, a dense A against a sparse B, and a dense B; for the chunked
+   rank-update kernel of the SpMM, inner and Gustavson reference bodies an
+   id out of range in a middle and in the last fiber, K not a multiple of
+   its 32-wide chunk, mirrored SpMM rows not 16-byte aligned, an M tile
+   with 37 live k, B fibers dense, ordered and out of order against
+   contiguous and scattered live k, and a far gap in the live k), with the
+   kernel's, the plain version's and ``torch.matmul``'s times (CUDA
+   events, median after warm-up; one timing for a call over 100 ms) beside
+   the least time the card could take. The body "auto" passed over is
+   timed too. Each SpMM, inner, Gustavson and outer call, both bodies,
+   must give the same bits twice and make no host sync (PyTorch's sync
+   debug mode), and a profile gives each redesigned kernel's time without
+   its wrapper's pre-pass (outer reference and sparse, and the chunked
+   kernel of the three reference bodies) at every launch shape. The fiber
+   scan those bodies run before their rank update is held against its
+   plain versions (kinds, chunk starts, live groups).
 3. The single-kernel path: ``schedule_single_kernel(aespa_equal4())`` then
    ``execute_schedule`` on the card for the nine Table I workloads (and
    citeseer reduced so that the outer product's sparse body runs), each
@@ -135,6 +144,16 @@ REPLACES = {
 }
 COUNTERS = (spmm_mod.launches, outer_mod.launches, gemm_mod.launches,
             inner_mod.launches, gust_mod.launches)
+#: The kernel each redesigned body launches, by the name its profile
+#: events carry: the time of the kernel alone, without its wrapper's
+#: pre-pass, is taken from a profile of the call.
+KERNEL_NAMES = {
+    "outer_reference": "outer_reference_kernel",
+    "outer_sparse": "outer_merge_kernel",
+    "spmm_reference": "chunk_update_kernel",
+    "inner_reference": "chunk_update_kernel",
+    "gustavson_reference": "chunk_update_kernel",
+}
 
 
 def log(msg: str) -> None:
@@ -331,12 +350,18 @@ class KernelCase:
         return err if ok else None
 
 
-def spmm_case(label, ap, bp, bn, method="auto"):
+def other_body(name, call, both):
+    """``(name, call)`` of the body "auto" passed over, or None for a case
+    that holds one body alone (an operand outside the other's domain)."""
+    return (name, call) if both else None
+
+
+def spmm_case(label, ap, bp, bn, method="auto", both=True):
     chosen = spmm_mod.resolve_method(method, ap.shape[1], bp.cap)
     other = "reference" if chosen == "sparse" else "sparse"
     b_dense = ell.ell_to_dense(bp).to(ap.dtype)
     m, n = ap.shape[0], bp.shape[1]
-    nnz = int((bp.ids >= 0).sum())
+    nnz = int(((bp.ids >= 0) & (bp.ids < ap.shape[1])).sum())
     return KernelCase(
         "spmm_" + chosen, label,
         kernel=lambda: spmm_mod.spmm(ap, bp, bn=bn, method=chosen),
@@ -345,8 +370,10 @@ def spmm_case(label, ap, bp, bn, method="auto"):
         in_bytes=nbytes(ap, bp.vals, bp.ids),
         out_bytes=m * n * ap.element_size(),
         flops=2.0 * m * nnz, dtype=ap.dtype,
-        other=("spmm_" + other,
-               lambda: spmm_mod.spmm(ap, bp, bn=bn, method=other)))
+        other=other_body("spmm_" + other,
+                         lambda: spmm_mod.spmm(ap, bp, bn=bn, method=other),
+                         both),
+        repeat=True)
 
 
 def outer_case(label, ap, bp, bm, bn, method="auto", want_zero=False):
@@ -388,15 +415,15 @@ def gemm_case(label, ap, bp, dims=None):
         flops=2.0 * m * k * n, dtype=ap.dtype)
 
 
-def inner_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto"):
+def inner_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto", both=True):
     (m, k), n = ap.shape, bp.shape[1]
     chosen = inner_mod.resolve_method(method, k, ap.cap)
     other = "reference" if chosen == "sparse" else "sparse"
     a_dense = ell.ell_to_dense(ap)
     b_dense = ell.ell_to_dense(bp)
     # The products the data needs: a pair per K coordinate both hold.
-    per_k = [torch.bincount(e.ids[e.ids >= 0].long(), minlength=k).double()
-             for e in (ap, bp)]
+    per_k = [torch.bincount(e.ids[(e.ids >= 0) & (e.ids < k)].long(),
+                            minlength=k).double() for e in (ap, bp)]
     pairs = float((per_k[0] * per_k[1]).sum())
     return KernelCase(
         "inner_" + chosen, label,
@@ -407,13 +434,15 @@ def inner_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto"):
         in_bytes=nbytes(ap.vals, ap.ids, bp.vals, bp.ids),
         out_bytes=m * n * ap.vals.element_size(),
         flops=2.0 * pairs, dtype=ap.vals.dtype,
-        other=("inner_" + other,
-               lambda: inner_mod.spgemm_inner(ap, bp, bm=bm, bn=bn, bk=bk,
-                                              method=other)))
+        other=other_body("inner_" + other,
+                         lambda: inner_mod.spgemm_inner(
+                             ap, bp, bm=bm, bn=bn, bk=bk, method=other),
+                         both),
+        repeat=True)
 
 
 def gustavson_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto",
-                   plain=None):
+                   plain=None, both=True):
     """``plain`` defaults to the module's plain version; the edge cases
     pass the dense oracle ``ref.spgemm_gustavson_ref`` instead, which
     gathers an (N, cap, M) block and so only suits small operands."""
@@ -425,8 +454,10 @@ def gustavson_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto",
     b_dense = ell.ell_to_dense(bp)
     # The products the data needs: a pair per K coordinate both hold (A's
     # fiber k against B's entries at k).
-    per_k_b = torch.bincount(bp.ids[bp.ids >= 0].long(), minlength=k)
-    pairs = float(((ap.ids >= 0).sum(1).double() * per_k_b.double()).sum())
+    per_k_b = torch.bincount(bp.ids[(bp.ids >= 0) & (bp.ids < k)].long(),
+                             minlength=k)
+    a_live = ((ap.ids >= 0) & (ap.ids < m)).sum(1).double()
+    pairs = float((a_live * per_k_b.double()).sum())
     return KernelCase(
         "gustavson_" + chosen, label,
         kernel=lambda: gust_mod.spgemm_gustavson(ap, bp, bm=bm, bn=bn, bk=bk,
@@ -436,9 +467,11 @@ def gustavson_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto",
         in_bytes=nbytes(ap.vals, ap.ids, bp.vals, bp.ids),
         out_bytes=m * n * ap.vals.element_size(),
         flops=2.0 * pairs, dtype=ap.vals.dtype,
-        other=("gustavson_" + other,
-               lambda: gust_mod.spgemm_gustavson(ap, bp, bm=bm, bn=bn, bk=bk,
-                                                 method=other)))
+        other=other_body("gustavson_" + other,
+                         lambda: gust_mod.spgemm_gustavson(
+                             ap, bp, bm=bm, bn=bn, bk=bk, method=other),
+                         both),
+        repeat=True)
 
 
 def region_tag(label, p):
@@ -665,7 +698,210 @@ def edge_cases():
             cases.append(gustavson_case(
                 f"edge {name} shuffled", *shuffled, bm, bn, method=method,
                 plain=gustavson_oracle(*shuffled)))
+        cases += chunk_edge_cases(name, dtype, sparse, gen)
     return cases
+
+
+def with_bad_id(e, where):
+    """``e`` with the last live slot of its middle or last fiber holding an
+    id past its minor size, beyond the discard bucket of 128-wide tiles
+    (the fault of ``tile_occupancy`` fixed with the redesign): a reference
+    body drops it, as the TPU's expansion does."""
+    f = e.n_fibers // 2 if where == "middle" else e.n_fibers - 1
+    ids = e.ids.clone()
+    live = int((ids[f] >= 0).sum())
+    if live == 0:
+        raise AssertionError(f"edge case: fiber {f} holds no entry")
+    ids[f, live - 1] = (-(-e.minor_size // BLOCK) + 1) * BLOCK + 5
+    return ell.EllMatrix(e.vals, ids, e.lens, e.shape, e.major_axis)
+
+
+def chunk_edge_cases(name, dtype, sparse, gen):
+    """Edge cases of the chunked rank-update kernel (the SpMM, inner and
+    Gustavson reference bodies): an id out of range in a middle and in the
+    last fiber (the reference body alone: the sparse bodies do not take
+    such operands); K not a multiple of the 32-wide chunk; mirrored SpMM
+    rows not 16-byte aligned; an M tile with 37 live k; B fibers dense,
+    ordered and out of order against contiguous and scattered live k, and
+    a far gap the kernel's binary search jumps; each with both bodies."""
+    cases = []
+
+    def ells(x, axis, cap=None):
+        need = int((x != 0).sum(dim=1 - axis).max())
+        return ell.dense_to_ell(x.to(dtype), axis, cap or max(need, 1),
+                                strict=True)
+
+    a = sparse(200, 300, 1.0).to(dtype)
+    b = sparse(300, 256, 0.3)
+    for where in ("middle", "last"):
+        ap, bp, bn = ops.spmm_operands(a, ells(b, 1), bm=BLOCK, bn=BLOCK)
+        cases.append(spmm_case(f"edge {name} id out of range, {where} fiber",
+                               ap, with_bad_id(bp, where), bn, "reference",
+                               both=False))
+        a2 = sparse(256, 300, 0.3)
+        ap, bp, bm, bn = ops.spgemm_inner_operands(ells(a2, 0), ells(b, 1),
+                                                   bm=BLOCK, bn=BLOCK)
+        cases.append(inner_case(
+            f"edge {name} id out of range, {where} fiber",
+            with_bad_id(ap, where), with_bad_id(bp, where), bm, bn,
+            method="reference", both=False))
+        a3 = sparse(256, 384, 0.3)
+        b3 = sparse(384, 256, 0.3)
+        ap, bp, bm, bn = ops.spgemm_gustavson_operands(
+            ells(a3, 1), ells(b3, 1), bm=BLOCK, bn=BLOCK)
+        cases.append(gustavson_case(
+            f"edge {name} id out of range, {where} fiber",
+            with_bad_id(ap, where), with_bad_id(bp, where), bm, bn,
+            method="reference", both=False))
+    # K = 300 straight into the inner kernels, with ragged M and N.
+    a2 = sparse(200, 300, 0.3)
+    b2 = sparse(300, 130, 0.3)
+    cases.append(inner_case(f"edge {name} K 300 ragged 200x300x130",
+                            ells(a2, 0), ells(b2, 1), BLOCK, BLOCK,
+                            method="reference"))
+    # Mirrored SpMM: the dense operand's rows of 301 and 302 elements, not
+    # 16-byte aligned, copied in narrower pieces (bf16 301: plain loads).
+    for k in (301, 302):
+        am = sparse(200, k, 0.3)
+        bm_ = sparse(k, 150, 1.0).to(dtype)
+        ap, bp, bn = ops.spmm_mirror_operands(ells(am, 0), bm_, bm=BLOCK,
+                                              bn=BLOCK)
+        if spmm_mod.row_granule(ap) * ap.element_size() >= 16:
+            raise AssertionError("edge case: mirrored rows are aligned")
+        cases.append(spmm_case(f"edge {name} mirror rows of {k}", ap, bp, bn,
+                               "reference"))
+    # M tile 0 live at exactly 37 k: a full chunk and one of 5.
+    a2 = sparse(256, 300, 0.3)
+    a2[:128] = 0
+    a2[torch.arange(37) * 3, torch.arange(37) * 7] = 0.5
+    ap, bp, bm, bn = ops.spgemm_inner_operands(ells(a2, 0), ells(b, 1),
+                                               bm=BLOCK, bn=BLOCK)
+    if int(inner_mod.live_k_rows(ap)[1][0]) != 37:
+        raise AssertionError("edge case: M tile 0 not 37 live k")
+    cases.append(inner_case(f"edge {name} 37 live k", ap, bp, bm, bn,
+                            method="reference"))
+    ap, bp, bm, bn = ops.spgemm_gustavson_operands(
+        ells(a2[:, :256].contiguous(), 1), ells(b[:256], 1), bm=BLOCK,
+        bn=BLOCK)
+    cases.append(gustavson_case(f"edge {name} 37 live k", ap, bp, bm, bn,
+                                method="reference"))
+    # B's fiber kinds against contiguous (dense A) and scattered (sparse
+    # A) live k; SpMM's scattered chunks come from a B live in some only.
+    k = 300
+    for kind, density in (("dense", 1.0), ("ordered", 0.3),
+                          ("out of order", 0.3)):
+        bk_ = sparse(k, 256, density)
+        bk_[100:, 9] = 0           # a fiber cut short
+        b_ell = ells(bk_, 1)
+        if kind == "out of order":
+            b_ell = shuffle_live_slots(b_ell, gen)
+        for live, da in (("contiguous", 1.0), ("scattered", 0.01)):
+            a2 = sparse(256, k, da)
+            ap, bp, bm, bn = ops.spgemm_inner_operands(
+                ells(a2, 0), b_ell, bm=BLOCK, bn=BLOCK)
+            cases.append(inner_case(f"edge {name} B {kind}, {live} k", ap,
+                                    bp, bm, bn, method="reference"))
+            ap, bp, bm, bn = ops.spgemm_gustavson_operands(
+                ells(a2, 1), b_ell, bm=BLOCK, bn=BLOCK)
+            cases.append(gustavson_case(f"edge {name} B {kind}, {live} k",
+                                        ap, bp, bm, bn, method="reference"))
+        bs = bk_.clone()
+        bs[32:64] = 0
+        bs[128:192] = 0
+        b_ell = ells(bs, 1)
+        if kind == "out of order":
+            b_ell = shuffle_live_slots(b_ell, gen)
+        ap, bp, bn = ops.spmm_operands(sparse(200, k, 1.0).to(dtype), b_ell,
+                                       bm=BLOCK, bn=BLOCK)
+        cases.append(spmm_case(f"edge {name} B {kind}, scattered chunks",
+                               ap, bp, bn, "reference"))
+    # A far gap: A live at k < 32 and at 32 k near the end, B ordered and
+    # dense enough that more than 32 of its slots lie in the gap.
+    k = 600
+    a2 = sparse(256, k, 0.5)
+    a2[:, 32:k - 40] = 0
+    a2[:, k - 8:] = 0
+    b2 = sparse(k, 256, 0.6)
+    for op in ("inner", "gustavson"):
+        if op == "inner":
+            ap, bp, bm, bn = ops.spgemm_inner_operands(
+                ells(a2, 0), ells(b2, 1), bm=BLOCK, bn=BLOCK)
+            cases.append(inner_case(f"edge {name} far gap", ap, bp, bm, bn,
+                                    method="reference"))
+        else:
+            ap, bp, bm, bn = ops.spgemm_gustavson_operands(
+                ells(a2, 1), ells(b2, 1), bm=BLOCK, bn=BLOCK)
+            cases.append(gustavson_case(f"edge {name} far gap", ap, bp, bm,
+                                        bn, method="reference"))
+    return cases
+
+
+def scan_check(label, e, tile, group):
+    """The fiber scan that the SpMM, inner and Gustavson reference
+    launches run before their rank update (``fiber_scan_launch``), held
+    against its plain versions on ``e``: the kinds (out of order where
+    ``spgemm_inner._ordered`` says so, dense where the live ids are the
+    slots, else ordered), every ordered fiber's chunk starts
+    (``spgemm_outer.fiber_chunk_starts``) and each tile's live groups
+    (``spgemm_outer.tile_live_lists``). Raises on a difference."""
+    lib = _build.load("spgemm_inner", inner_mod._SIGNATURES)
+    nf, cap, minor = e.n_fibers, e.cap, e.minor_size
+    chunk = spmm_mod.REFERENCE_CHUNK
+    n_groups = -(-minor // group)
+    kinds = torch.empty(nf, dtype=torch.int32, device="cuda")
+    starts = torch.empty((-(-minor // chunk) + 1, nf), dtype=torch.int32,
+                         device="cuda")
+    flags = torch.zeros((-(-nf // tile), n_groups), dtype=torch.uint8,
+                        device="cuda")
+    _build.check(lib.fiber_scan_launch(
+        _build.ptr(e.ids), nf, cap, minor, _build.ptr(kinds),
+        _build.ptr(starts), chunk, _build.ptr(flags), tile, group,
+        _build.stream(e.ids.device)), "fiber_scan")
+    ordered = inner_mod._ordered(e)
+    live = e.ids >= 0
+    slots = torch.arange(cap, device="cuda", dtype=e.ids.dtype)
+    dense = ordered & ((e.ids == slots) | ~live).all(dim=1)
+    want_kind = torch.where(~ordered, -2, torch.where(
+        dense, live.sum(dim=1, dtype=torch.int32), -1)).to(torch.int32)
+    want_starts = outer_mod.fiber_chunk_starts(e, chunk)
+    lists, counts = outer_mod.tile_live_lists(e, tile, group)
+    in_list = (torch.arange(n_groups + 1, device="cuda")[None]
+               < counts[:, None])
+    want_flags = torch.zeros((lists.shape[0], n_groups + 1),
+                             dtype=torch.uint8, device="cuda")
+    want_flags.scatter_(1, torch.where(in_list, lists, n_groups).long(), 1)
+    bad = [what for what, ok in (
+        ("kinds", torch.equal(kinds, want_kind)),
+        ("starts", torch.equal(starts[:, ordered], want_starts[:, ordered])),
+        ("flags", torch.equal(flags, want_flags[:, :n_groups]))) if not ok]
+    log(f"scan {label}: tile {tile}, group {group}, {int(ordered.sum())} of "
+        f"{nf} fibers ordered, {int(dense.sum())} dense: "
+        + ("ok" if not bad else f"differs in {bad}"))
+    if bad:
+        raise AssertionError(f"fiber scan ({label}) differs from its plain "
+                             f"versions in {bad}")
+
+
+def scan_checks():
+    """:func:`scan_check` on fibers dense, ordered, out of order and with
+    ids out of range, at SpMM's live chunks (group 32) and inner's live k
+    (group 1), with a ragged last tile."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for label, density in (("dense", 1.0), ("ordered", 0.3),
+                           ("sparse", 0.01)):
+        x = torch.randn(300, 200, device="cuda", generator=gen)
+        x = x * (torch.rand(300, 200, device="cuda", generator=gen)
+                 < density)
+        x[:, 7] = 0
+        e = ell.dense_to_ell(x, 1, int((x != 0).sum(0).max()) + 3)
+        variants = [(label, e), (label + " shuffled",
+                                 shuffle_live_slots(e, gen))]
+        if density < 1.0:
+            variants.append((label + " id out of range",
+                             with_bad_id(e, "middle")))
+        for name, f in variants:
+            for group in (spmm_mod.REFERENCE_CHUNK, 1):
+                scan_check(name, f, BLOCK, group)
 
 
 def gustavson_oracle(ap, bp):
@@ -826,26 +1062,32 @@ def main() -> int:
                          *pairs[asg.task_index],
                          [pp.partition for pp in asg.placed])
                         for asg in ms.assignments]
-    outer_rows = []
+    redesigned = []
     for label, a_d, b_d, partitions in launch_sets:
         for case in partition_cases(label, a_d, b_d, partitions, seen):
             rows.append(case.check(reps=5))
-            if case.body.startswith("outer_"):
-                outer_rows.append((case, rows[-1]))
+            other = case.other[0] if case.other else None
+            if {case.body, other} & KERNEL_NAMES.keys():
+                redesigned.append((case, rows[-1]))
         torch.cuda.empty_cache()
-    # The outer kernels alone, without their wrappers' pre-passes: both
-    # bodies at every outer launch shape.
-    names = ("outer_reference_kernel", "outer_merge_kernel")
-    for case, row in outer_rows:
-        row["kernel_only_ms"] = kernel_only_ms(case.kernel, names)
-        row["other_kernel_only_ms"] = kernel_only_ms(case.other[1], names)
-        log("outer " + json.dumps({k: row[k] for k in (
+    # The redesigned kernels alone, without their wrappers' pre-passes:
+    # each body that has one, chosen or passed over, at every launch shape.
+    for case, row in redesigned:
+        if case.body in KERNEL_NAMES:
+            row["kernel_only_ms"] = kernel_only_ms(
+                case.kernel, (KERNEL_NAMES[case.body],))
+        name, call = case.other or (None, None)
+        if name in KERNEL_NAMES:
+            row["other_kernel_only_ms"] = kernel_only_ms(
+                call, (KERNEL_NAMES[name],))
+        log("alone " + json.dumps({k: row[k] for k in (
             "name", "case", "ms", "kernel_only_ms", "other_body",
             "other_ms", "other_kernel_only_ms", "library_ms",
-            "bound_ms")}))
-    del outer_rows
+            "bound_ms") if k in row}))
+    del redesigned
     for case in edge_cases():
         case.check()
+    scan_checks()
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 3: the single-kernel path --------------------------------

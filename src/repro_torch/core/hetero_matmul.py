@@ -35,6 +35,14 @@ from repro_torch.formats.taxonomy import DataflowClass
 from repro_torch.kernels import ops
 
 
+def _operand(x, device) -> torch.Tensor:
+    """A dense operand on ``device``, float64 cast to float32 as
+    ``jnp.asarray`` casts it without x64 (the kernels take float32 and
+    bfloat16); every other dtype as it is."""
+    t = torch.as_tensor(x, device=device)
+    return t.float() if t.dtype == torch.float64 else t
+
+
 def _compressed_operands(cls: DataflowClass, mirror: bool):
     """Which operands a class compresses, as ``(operand, major_axis)``
     pairs in REQUIRED_FORMATS order (operand is "a" or "b")."""
@@ -146,8 +154,10 @@ def execute_schedule(a, b, schedule: KernelSchedule, block: int = 128,
 
     M/N-split partials tile the output; K-split partials for the same
     output tile sum first, then each tile lands with one add. ``a``/``b``
-    are dense (numpy arrays or tensors); ``device=None`` runs on the card
-    and raises without one, ``device="cpu"`` runs the plain versions.
+    are dense (numpy arrays or tensors; float64 becomes float32, as in the
+    JAX package, and so for every executor below); ``device=None`` runs on
+    the card and raises without one, ``device="cpu"`` runs the plain
+    versions.
 
     ``cost_sink`` (optional list) is the achieved-intensity hook: one
     :class:`repro_torch.core.costmodel.SwKernelCost` (``ops.op_cost``) is
@@ -156,8 +166,7 @@ def execute_schedule(a, b, schedule: KernelSchedule, block: int = 128,
     reads the partition's true nonzero counts on the host.
     """
     dev = ops.resolve_device(device)
-    a_d = torch.as_tensor(a, device=dev)
-    b_d = torch.as_tensor(b, device=dev)
+    a_d, b_d = _operand(a, dev), _operand(b, dev)
     m, n = a_d.shape[0], b_d.shape[1]
     out_dtype = torch.promote_types(a_d.dtype, b_d.dtype)
     parts = [p for p in schedule.partitions if not p.region.empty]
@@ -191,8 +200,7 @@ def hetero_matmul(a, b, config: cm.AcceleratorConfig, block: int = 128,
     the last bit.
     """
     dev = ops.resolve_device(device)
-    a_d = torch.as_tensor(a, device=dev)
-    b_d = torch.as_tensor(b, device=dev)
+    a_d, b_d = _operand(a, dev), _operand(b, dev)
     m, k = a_d.shape
     k2, n = b_d.shape
     assert k == k2
@@ -302,8 +310,7 @@ def hetero_many_matmul(
     schedule)``.
     """
     dev = ops.resolve_device(device)
-    dense = [(torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev))
-             for a, b in pairs]
+    dense = [(_operand(a, dev), _operand(b, dev)) for a, b in pairs]
     nnz = (torch.stack([torch.count_nonzero(x) for ab in dense for x in ab])
            .tolist() if dense else [])
     tasks = []

@@ -118,10 +118,12 @@ def dense_to_ell(dense: torch.Tensor, major_axis: int, cap: int,
 
 
 def ell_to_dense(e: EllMatrix) -> torch.Tensor:
-    """Scatter an :class:`EllMatrix` back to dense."""
+    """Scatter an :class:`EllMatrix` back to dense. A slot whose id lies
+    outside ``[0, minor_size)`` is dropped, as JAX's out-of-range scatter
+    drops it."""
     minor = e.minor_size
-    # PAD_ID slots scatter into a discard column.
-    safe = torch.where(e.ids >= 0, e.ids, minor).long()
+    # PAD_ID slots, and ids out of range, scatter into a discard column.
+    safe = torch.where((e.ids >= 0) & (e.ids < minor), e.ids, minor).long()
     out = torch.zeros((e.n_fibers, minor + 1), dtype=e.vals.dtype,
                       device=e.vals.device)
     out.scatter_add_(1, safe, e.vals)
@@ -179,32 +181,38 @@ def block_window_nnz(e: EllMatrix, window: int) -> torch.Tensor:
     """Per-minor-window nonzero counts over all fibers: window ``w`` covers
     minor coordinates ``[w·window, (w+1)·window)``. A zero count proves no
     fiber lands in that window, so a kernel may skip every tile reading it.
-    Returns int32 ``(ceil(minor_size / window),)``.
+    PAD slots and ids past the last window's discard bucket count nowhere,
+    as in the JAX package. A ``scatter_add_`` into a fixed-size buffer, so
+    no host sync. Returns int32 ``(ceil(minor_size / window),)``.
     """
     n_win = -(-e.minor_size // window)
     live = e.ids >= 0
     win = torch.where(live, torch.div(e.ids, window, rounding_mode="floor"),
-                      n_win)                      # pad -> discard bucket
-    counts = torch.bincount(win.reshape(-1).long(), minlength=n_win + 1)
-    return counts[:n_win].to(torch.int32)
+                      n_win).clamp_(max=n_win)    # pad -> discard bucket
+    counts = torch.zeros(n_win + 1, dtype=torch.int32, device=e.ids.device)
+    counts.scatter_add_(0, win.reshape(-1).long(),
+                        live.reshape(-1).to(torch.int32))
+    return counts[:n_win]
 
 
 def tile_occupancy(e: EllMatrix, tile: int) -> torch.Tensor:
     """Per-(fiber, minor-tile) nonzero counts: entry ``[f, t]`` counts the
     nonzeros of fiber ``f`` with minor coordinate in ``[t·tile,
-    (t+1)·tile)``. One bincount over ``fiber · (n_tiles + 1) + tile`` (PAD
-    slots land in each fiber's discard bucket), so the work is the ELL's
-    size, not ``n_fibers × cap × n_tiles``. Returns int32 ``(n_fibers,
-    ceil(minor_size / tile))``.
+    (t+1)·tile)``. Each fiber's counts go to its own row of an
+    ``(n_fibers, n_tiles + 1)`` buffer by ``scatter_add_`` (no host sync);
+    PAD slots and ids at or past ``n_tiles·tile`` land in the row's discard
+    bucket, so nothing spills into another fiber, and an id in
+    ``[minor_size, n_tiles·tile)`` counts in the last tile, as in the JAX
+    package. The work is the ELL's size, not ``n_fibers × cap × n_tiles``.
+    Returns int32 ``(n_fibers, ceil(minor_size / tile))``.
     """
     n_tiles = -(-e.minor_size // tile)
     t = torch.where(e.ids >= 0, torch.div(e.ids, tile, rounding_mode="floor"),
-                    n_tiles).long()
-    fiber = torch.arange(e.n_fibers, device=e.ids.device)[:, None]
-    flat = (t + fiber * (n_tiles + 1)).reshape(-1)
-    counts = torch.bincount(flat, minlength=e.n_fibers * (n_tiles + 1))
-    return counts.reshape(e.n_fibers, n_tiles + 1)[:, :n_tiles].to(
-        torch.int32)
+                    n_tiles).clamp_(max=n_tiles).long()
+    counts = torch.zeros((e.n_fibers, n_tiles + 1), dtype=torch.int32,
+                         device=e.ids.device)
+    counts.scatter_add_(1, t, torch.ones_like(t, dtype=torch.int32))
+    return counts[:, :n_tiles]
 
 
 def ell_from_numpy(vals, ids, lens, shape, major_axis: int,

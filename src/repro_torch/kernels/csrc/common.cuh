@@ -13,6 +13,9 @@ namespace rt {
 // Element-type codes shared with the Python wrappers.
 enum : int { kF32 = 0, kBF16 = 1 };
 
+// The id of a padding slot in a fiber (formats/ell.py PAD_ID).
+constexpr int PAD_ID = -1;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -27,6 +30,14 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// Call fn with a null pointer to the element type that `dtype` (kF32 or
+// kBF16) names, so a C entry writes its launch once for both types.
+template <typename Fn>
+int dtype_dispatch(int dtype, Fn&& fn) {
+  return dtype == kBF16 ? fn(static_cast<__nv_bfloat16*>(nullptr))
+                        : fn(static_cast<float*>(nullptr));
 }
 
 }  // namespace rt

@@ -26,27 +26,22 @@
 // mostly from L2, so load bandwidth bounds it; the scatter reads A's ELL
 // once and writes each live entry once into the table.
 //
-// Reference body (replaces _gustavson_reference_kernel): the expand-update
-// kernel of fiber_contract.cuh with A as K column fibers. One block owns a
-// 128 x 128 output tile and walks K in steps of bk <= 128. A step runs only
-// when A's bk fibers of the step hold an entry in the tile's M range and
-// B's fibers of the tile's N range hold one in the step (occupancy counts
-// of tile_occupancy, summed by the wrapper; the TPU body expands every
-// step, the output is the same). A live step expands A's bk fibers over
-// the M range into the rows of one shared-memory tile and B's 128 fibers
-// over the step into the other, then applies a rank-bk update to 8 x 8
-// register accumulators. Each side's slots come from the wrapper's prefix
-// sums of tile_occupancy: (a, 128) gives the range of fiber k's entries in
-// M tile t, (b, bk) that of fiber n's entries in step kk. That holds for
-// an ordered fiber (live ids in range and ascending, PAD slots last; a flag
-// per fiber computed by the wrapper on the device, with no host sync); any
-// other fiber is scanned whole, each id tested, so no input writes outside
-// the tile. Nothing scans a whole fiber per tile and step otherwise: at
-// synthetic_dense A's fibers hold 5120 slots, and a scan per (N, M, K)
-// step would read about 2.6e9 slots.
-// Bound: the dense rank updates do 2·128·128·bk FMAs per live step against
-// the 2·Σk nnzA(k)·nnzB(k) the data needs; with dense-enough operands the
-// f32 FMA rate bounds it, as for the GEMM.
+// Reference body (replaces _gustavson_reference_kernel). The TPU expands
+// B and A per (N, M, K block) and adds their product, every K block. Here
+// it is the chunked rank-update kernel of chunk_update.cuh with A as K
+// column fibers: per 128 x 128 output tile, a walk over only the K fibers
+// of A that hold an entry in the M tile (spgemm_outer.live_k_lists, the
+// outer product's pre-pass, with A's slot range per tile), 32 at a time;
+// A's fibers expand over the tile's M window into the rows of one tile,
+// B's fibers (dense ones indexed at slot k, ordered ones merged from a
+// cursor) over the chunk's k into the other, and each chunk is a rank-32
+// update of 8 x 8 register blocks. At m3plates an M tile has about 76 live
+// k of 11000, where the old per-step walk ran dense rank-128 updates over
+// 70 of 86 steps. Bound: at sparse A the reads of B's entries at the live
+// k and the output write; at dense A the f32 FMA rate.
+#include <type_traits>
+
+#include "chunk_update.cuh"
 #include "fiber_contract.cuh"
 #include "fiber_table.cuh"
 
@@ -96,31 +91,45 @@ extern "C" int gustavson_sparse_launch(
   return (int)cudaErrorInvalidValue;
 }
 
+// gustavson_reference_launch scans A (fiber kinds, into a_kind) and B
+// (kinds and chunk starts, into b_kind and b_runs) before the rank update.
 extern "C" int gustavson_reference_launch(
-    const void* a_vals, const void* a_ids, const void* a_off,
-    const void* a_ord, int cap_a, const void* b_vals, const void* b_ids,
-    const void* b_off, const void* b_ord, int cap_b, const void* a_occ,
-    const void* b_occ, int bn, void* out, int M, int K, int N, int bk,
-    int dtype, void* stream) {
+    const void* a_vals, const void* a_ids, const void* a_off, void* a_kind,
+    int cap_a, const void* b_vals, const void* b_ids, void* b_kind,
+    void* b_runs, int cap_b, const void* live_k, const void* live_n,
+    int ld_live, void* out, int M, int K, int N, int dtype, void* stream) {
+  if (dtype != rt::kF32 && dtype != rt::kBF16)
+    return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int* ai = static_cast<const int*>(a_ids);
-  const int* ao = static_cast<const int*>(a_off);
-  const bool* ar = static_cast<const bool*>(a_ord);
-  const int* bi = static_cast<const int*>(b_ids);
-  const int* bo = static_cast<const int*>(b_off);
-  const bool* br = static_cast<const bool*>(b_ord);
-  const int* aq = static_cast<const int*>(a_occ);
-  const int* bq = static_cast<const int*>(b_occ);
-  // bm is unused with A as column fibers: A's occupancy is per M tile.
-  if (dtype == rt::kF32)
-    return rt::launch_expand_update<float, true>(
-        static_cast<const float*>(a_vals), ai, ao, ar, cap_a,
-        static_cast<const float*>(b_vals), bi, bo, br, cap_b, aq, rt::EU_M,
-        bq, bn, static_cast<float*>(out), M, K, N, bk, s);
-  if (dtype == rt::kBF16)
-    return rt::launch_expand_update<__nv_bfloat16, true>(
-        static_cast<const __nv_bfloat16*>(a_vals), ai, ao, ar, cap_a,
-        static_cast<const __nv_bfloat16*>(b_vals), bi, bo, br, cap_b, aq,
-        rt::EU_M, bq, bn, static_cast<__nv_bfloat16*>(out), M, K, N, bk, s);
-  return (int)cudaErrorInvalidValue;
+  cudaError_t err = rt::launch_fiber_kind(static_cast<const int*>(a_ids), K,
+                                          cap_a, M,
+                                          static_cast<int*>(a_kind), s);
+  if (err != cudaSuccess) return (int)err;
+  err = rt::launch_fiber_scan(static_cast<const int*>(b_ids), N, cap_b, K,
+                              static_cast<int*>(b_kind),
+                              static_cast<int*>(b_runs), rt::CU_KC, nullptr,
+                              1, 1, s);
+  if (err != cudaSuccess) return (int)err;
+  return rt::dtype_dispatch(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    rt::ChunkArgs<T> p{};
+    p.a = static_cast<const T*>(a_vals);
+    p.a_ids = static_cast<const int*>(a_ids);
+    p.a_kind = static_cast<const int*>(a_kind);
+    p.a_off = static_cast<const int*>(a_off);
+    p.cap_a = cap_a;
+    p.b_vals = static_cast<const T*>(b_vals);
+    p.b_ids = static_cast<const int*>(b_ids);
+    p.b_kind = static_cast<const int*>(b_kind);
+    p.b_runs = static_cast<const int*>(b_runs);
+    p.cap_b = cap_b;
+    p.list = static_cast<const int*>(live_k);
+    p.list_n = static_cast<const int*>(live_n);
+    p.ld_list = ld_live;
+    p.out = static_cast<T*>(out);
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    return rt::launch_chunk_update<T, rt::ALoad::kColumnFibers>(p, s);
+  });
 }

@@ -21,24 +21,23 @@
 // mostly from L2, so load bandwidth bounds it; the scatter moves B's ELL
 // and the table once.
 //
-// Reference body (replaces _inner_reference_kernel): the expand-update
-// kernel of fiber_contract.cuh with A as row fibers. One block owns a
-// 128 x 128 output tile and walks K in steps of bk <= 128. A step runs only
-// when the tile's rows hold an A entry and its columns a B entry in that K
-// range (the occupancy counts of tile_occupancy summed over fiber blocks,
-// computed by the wrapper, as the TPU's scalar prefetch). A live step
-// expands the step's slots of its 128 A fibers and 128 B fibers into
-// shared-memory tiles, K-major, and applies a rank-bk update to 8 x 8
-// register accumulators. The slots of step kk in fiber f are
-// [off[f, kk], off[f, kk + 1]): the wrapper's prefix sums of the
-// occupancy. That holds where the fiber's live ids lie in [0, K) and
-// ascend and its PAD slots come last (ord[f], computed by the wrapper on
-// the device), so a step reads only its own slots. Any other fiber is
-// scanned whole at every step, each slot tested against the step, so no
-// input makes the kernel write outside its tile.
-// Bound: the dense rank updates do 2·128·128·bk FMAs per live step against
-// the 2·Σk nnzA(k)·nnzB(k) the data needs; with dense-enough operands the
-// f32 FMA rate bounds it, as for the GEMM.
+// Reference body (replaces _inner_reference_kernel). The TPU skips a
+// (tile, K step) unless both tile_occupancy counts are > 0, then expands
+// both operands and contracts on the MXU. Here it is the chunked
+// rank-update kernel of chunk_update.cuh with A as row fibers: per 128 x
+// 128 output tile, a walk over the k that some row fiber of the M tile
+// holds (the wrapper's pre-pass, no host sync), 32 at a time; both
+// operands' fibers are merged over each chunk from cursors that only move
+// forward (one coalesced read of 32 slots per fiber and chunk where the
+// k are contiguous), and each chunk is a rank-32 update of 8 x 8 register
+// blocks; a chunk where no B fiber of the N tile holds an entry skips its
+// update. Bound: 2·128·128 FMAs per live k against the 2·Σk
+// nnzA(k)·nnzB(k) the data needs; "auto" sends inner here only when A's
+// fibers are more than a quarter full, where every k is live and the f32
+// FMA rate bounds it.
+#include <type_traits>
+
+#include "chunk_update.cuh"
 #include "fiber_contract.cuh"
 #include "fiber_table.cuh"
 
@@ -56,19 +55,6 @@ int inner_sparse(const T* a_vals, const int* a_ids, int cap_a,
   return (int)launch_gather_contract<T, false>(
       a_vals, a_ids, cap_a, a_chunks, bm, fc, table, b_counts, bn, out, M, N,
       stream);
-}
-
-template <typename T>
-int inner_reference(const T* a_vals, const int* a_ids, const int* a_off,
-                    const bool* a_ord, int cap_a, const T* b_vals,
-                    const int* b_ids, const int* b_off, const bool* b_ord,
-                    int cap_b, const int* a_occ, int bm, const int* b_occ,
-                    int bn, T* out, int M, int K, int N, int bk,
-                    cudaStream_t stream) {
-  return launch_expand_update<T, false>(a_vals, a_ids, a_off, a_ord, cap_a,
-                                        b_vals, b_ids, b_off, b_ord, cap_b,
-                                        a_occ, bm, b_occ, bn, out, M, K, N,
-                                        bk, stream);
 }
 
 }  // namespace rt
@@ -103,30 +89,43 @@ extern "C" int inner_sparse_launch(const void* a_vals, const void* a_ids,
   return (int)cudaErrorInvalidValue;
 }
 
+// inner_reference_launch scans B (fiber kinds and chunk starts, into
+// b_kind and b_runs) before the rank update; A's kinds, starts and live k
+// come from fiber_scan_launch (chunk_update.cuh) and the wrapper's
+// compaction of its flags into live_k.
 extern "C" int inner_reference_launch(
-    const void* a_vals, const void* a_ids, const void* a_off,
-    const void* a_ord, int cap_a, const void* b_vals, const void* b_ids,
-    const void* b_off, const void* b_ord, int cap_b, const void* a_occ, int bm,
-    const void* b_occ, int bn, void* out, int M, int K, int N, int bk,
+    const void* a_vals, const void* a_ids, const void* a_kind,
+    const void* a_runs, int cap_a, const void* b_vals, const void* b_ids,
+    void* b_kind, void* b_runs, int cap_b, const void* live_k,
+    const void* live_n, int ld_live, void* out, int M, int K, int N,
     int dtype, void* stream) {
+  if (dtype != rt::kF32 && dtype != rt::kBF16)
+    return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int* ai = static_cast<const int*>(a_ids);
-  const int* ao = static_cast<const int*>(a_off);
-  const bool* ar = static_cast<const bool*>(a_ord);
-  const int* bi = static_cast<const int*>(b_ids);
-  const int* bo = static_cast<const int*>(b_off);
-  const bool* br = static_cast<const bool*>(b_ord);
-  const int* aq = static_cast<const int*>(a_occ);
-  const int* bq = static_cast<const int*>(b_occ);
-  if (dtype == rt::kF32)
-    return rt::inner_reference<float>(
-        static_cast<const float*>(a_vals), ai, ao, ar, cap_a,
-        static_cast<const float*>(b_vals), bi, bo, br, cap_b, aq, bm, bq, bn,
-        static_cast<float*>(out), M, K, N, bk, s);
-  if (dtype == rt::kBF16)
-    return rt::inner_reference<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(a_vals), ai, ao, ar, cap_a,
-        static_cast<const __nv_bfloat16*>(b_vals), bi, bo, br, cap_b, aq, bm,
-        bq, bn, static_cast<__nv_bfloat16*>(out), M, K, N, bk, s);
-  return (int)cudaErrorInvalidValue;
+  const cudaError_t err = rt::launch_fiber_scan(
+      static_cast<const int*>(b_ids), N, cap_b, K, static_cast<int*>(b_kind),
+      static_cast<int*>(b_runs), rt::CU_KC, nullptr, 1, 1, s);
+  if (err != cudaSuccess) return (int)err;
+  return rt::dtype_dispatch(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    rt::ChunkArgs<T> p{};
+    p.a = static_cast<const T*>(a_vals);
+    p.a_ids = static_cast<const int*>(a_ids);
+    p.a_kind = static_cast<const int*>(a_kind);
+    p.a_runs = static_cast<const int*>(a_runs);
+    p.cap_a = cap_a;
+    p.b_vals = static_cast<const T*>(b_vals);
+    p.b_ids = static_cast<const int*>(b_ids);
+    p.b_kind = static_cast<const int*>(b_kind);
+    p.b_runs = static_cast<const int*>(b_runs);
+    p.cap_b = cap_b;
+    p.list = static_cast<const int*>(live_k);
+    p.list_n = static_cast<const int*>(live_n);
+    p.ld_list = ld_live;
+    p.out = static_cast<T*>(out);
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    return rt::launch_chunk_update<T, rt::ALoad::kRowFibers>(p, s);
+  });
 }

@@ -15,10 +15,10 @@
 // wrapper's sorted search) and B's slots in its N window (a slot range found
 // by a warp-wide binary search of the fiber) into shared memory, skips the
 // update when B has no entry in the chunk, and applies a rank-32 update to
-// 8 x 8 register accumulators. A fiber out of order (fiber kinds computed
-// here, one pass over the ids) is scanned whole with every id tested, and
-// a dense one (ids equal to slots) needs no search. So
-// a block reads the slots that land in its tile and the live fibers'
+// 8 x 8 register accumulators. A fiber out of order (fiber kinds from the
+// scan of fiber_search.cuh, one pass over the ids) is scanned whole with
+// every id tested, and a dense one (ids equal to slots) needs no search.
+// So a block reads the slots that land in its tile and the live fibers'
 // search probes; at dense data it is a SIMT f32 product bounded by the
 // FMA rate, at sparse A by B's window slices and the output write.
 //
@@ -33,146 +33,9 @@
 // dense fiber, or a tested scan of a fiber out of order). A fiber's ids are unique and a row is one warp's, so no add needs
 // an atomic and two runs give the same bits. The work is the pair count
 // plus one write of the output.
-#include "common.cuh"
+#include "fiber_search.cuh"
 
 namespace rt {
-
-constexpr unsigned kFull = 0xffffffffu;
-
-// ------------------------------------------------------------ fiber kinds
-// kind[f] says how a kernel may read fiber f: kUnordered when some id lies
-// outside [PAD_ID, minor) or the keys (the id, PAD counted as minor)
-// descend somewhere (spgemm_inner._ordered's test: the fiber is scanned
-// whole, ids tested); else its live count L when its ids are exactly its
-// slots 0..L-1 (a dense fiber: the window [x0, x1) is the slots
-// [min(x0, L), min(x1, L)), found without a search); else kOrdered (live
-// ids ascending, PAD slots last: windows are binary-searched). One warp
-// per fiber, one pass over the ids.
-constexpr int kUnordered = -2, kOrdered = -1;
-
-__global__ void fiber_kind_kernel(const int* __restrict__ ids, int n_fibers,
-                                  int cap, int minor, int* __restrict__ kind) {
-  const int f = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (f >= n_fibers) return;  // uniform across the warp
-  const int* row = ids + (size_t)f * cap;
-  bool ok = true, dense = true;
-  int live = 0;
-  for (int s = lane; s < cap; s += 32) {
-    const int id = row[s];
-    ok &= id >= -1 && id < minor;
-    if (s + 1 < cap) {
-      const int nx = row[s + 1];
-      ok &= (nx >= 0 ? nx : minor) >= (id >= 0 ? id : minor);
-    }
-    if (id >= 0) {
-      ++live;
-      dense &= id == s;
-    }
-  }
-  ok = __all_sync(kFull, ok);
-  dense = __all_sync(kFull, dense);
-  live = __reduce_add_sync(kFull, live);
-  if (lane == 0) kind[f] = !ok ? kUnordered : dense ? live : kOrdered;
-}
-
-cudaError_t launch_fiber_kind(const int* ids, int n_fibers, int cap,
-                              int minor, int* kind, cudaStream_t stream) {
-  if (n_fibers > 0)
-    fiber_kind_kernel<<<(n_fibers + 7) / 8, 256, 0, stream>>>(
-        ids, n_fibers, cap, minor, kind);
-  return cudaGetLastError();
-}
-
-// The search ranges of fiber `kind`'s window [x0, x1): closed at once for a
-// dense fiber, the whole fiber for an ordered one, empty (no search) for a
-// fiber scanned whole.
-__device__ __forceinline__ void window_ranges(int kind, int cap, int x0,
-                                              int x1, int& lo0, int& hi0,
-                                              int& lo1, int& hi1) {
-  if (kind >= 0) {
-    lo0 = hi0 = min(x0, kind);
-    lo1 = hi1 = min(x1, kind);
-  } else {
-    lo0 = lo1 = 0;
-    hi0 = hi1 = kind == kOrdered ? cap : 0;
-  }
-}
-
-// --------------------------------------------------------- binary search
-// S lower-bound searches at once, their loads interleaved so that their
-// latencies overlap. Search i looks in the slots [lo[i], hi[i]) of the
-// ordered fiber ids[i] for the first slot whose key (the id; a PAD slot
-// counts as +inf) is >= x[i], and leaves it in lo[i] (hi[i] if there is
-// none). Each step every lane probes one slot, 32 evenly spaced, and a
-// ballot keeps the gap between the last probe below x and the first at or
-// above it: about log32 of the width in steps. Every lane of the warp
-// passes the same arguments. spgemm_outer.warp_lower_bound is this search
-// in Python, for the tests.
-template <int S>
-__device__ __forceinline__ void warp_lower_bounds(const int* const (&ids)[S],
-                                                  const int (&x)[S],
-                                                  int (&lo)[S], int (&hi)[S],
-                                                  int lane) {
-  while (true) {
-    bool open = false, ge[S];
-    int stride[S];
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const int width = hi[i] - lo[i];
-      open |= width > 0;
-      stride[i] = (width + 31) / 32;
-      const int p = lo[i] + lane * stride[i];
-      ge[i] = true;  // a probe past the range counts as >= x
-      if (p < hi[i]) {
-        const int id = ids[i][p];
-        ge[i] = id < 0 || id >= x[i];
-      }
-    }
-    if (!open) return;  // uniform: every lane holds the same ranges
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const unsigned ball = __ballot_sync(kFull, ge[i]);
-      if (hi[i] > lo[i]) {
-        if (ball == 0) {
-          lo[i] += 31 * stride[i] + 1;
-        } else {
-          const int f = __ffs(ball) - 1;
-          const int h = min(hi[i], lo[i] + f * stride[i]);
-          if (f > 0) lo[i] += (f - 1) * stride[i] + 1;
-          hi[i] = h;
-        }
-      }
-    }
-  }
-}
-
-// One fiber's entries with ids in [lo, lo + width) into E[id - lo]: the
-// slots [s0, s1) of an ordered fiber, untested, or every slot of any other
-// fiber, each id tested, so no input writes outside the window. Returns
-// whether this lane wrote.
-template <typename T>
-__device__ __forceinline__ bool expand_window(
-    const T* __restrict__ vals, const int* __restrict__ ids, int cap,
-    bool ordered, int s0, int s1, int lo, int width, float* __restrict__ E,
-    int lane) {
-  bool wrote = false;
-  if (ordered) {
-    for (int s = s0 + lane; s < s1; s += 32) {
-      E[ids[s] - lo] = to_f32(vals[s]);
-      wrote = true;
-    }
-  } else {
-    for (int s = lane; s < cap; s += 32) {
-      const unsigned r = (unsigned)(ids[s] - lo);
-      if (r < (unsigned)width) {
-        E[r] = to_f32(vals[s]);
-        wrote = true;
-      }
-    }
-  }
-  return wrote;
-}
 
 // --------------------------------------------------------- reference body
 constexpr int OR_M = 128, OR_N = 128, OR_KC = 32, OR_THREADS = 256;
@@ -186,7 +49,7 @@ static_assert(OR_M == OR_N, "both expansion tiles share OR_LD");
 // live_k[t * ld_live + i], i < live_n[t]: the k whose A fiber holds an entry
 // in M tile t, ascending; a_off[k * (T + 1) + t]: where fiber k's entries
 // in tile t start, for an ordered fiber (T = gridDim.y M tiles); a_kind and
-// b_kind from fiber_kind_kernel.
+// b_kind from fiber_scan_kernel.
 template <typename T>
 __global__ void __launch_bounds__(OR_THREADS, 2) outer_reference_kernel(
     const T* __restrict__ a_vals, const int* __restrict__ a_ids,

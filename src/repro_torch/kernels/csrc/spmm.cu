@@ -20,13 +20,17 @@
 //
 // Reference body (replaces _spmm_reference_kernel). The TPU expands every
 // (bn, cap) fiber block to a dense (bn, K) tile for every output tile and
-// contracts it on the MXU. Here one block owns a 256 x 32 output tile and
-// never expands: each warp owns 4 output columns and walks their fibers
-// (ids ascending, PAD_ID skipped), and for each nonzero (k, v) adds
-// v · A[:, k] over its 256 rows. A's row block is staged in shared memory
-// in chunks of 32 k, so those gathers hit shared memory, not device
-// memory. Bound: 2·M·nnz(B) FMAs, each needing one shared-memory load, so
-// shared-memory and issue bandwidth, not the FMA rate, limit it.
+// contracts it on the MXU. Here it is the chunked rank-update kernel of
+// chunk_update.cuh with A as dense rows: per 128 x 128 output tile, a walk
+// over the 32-wide K chunks some B fiber of the N tile holds (the
+// wrapper's pre-pass), A's 128 x 32 chunk copied into shared memory with
+// cp.async and B's fibers expanded over it, each chunk a rank-32 update of
+// 8 x 8 register blocks. "auto" sends SpMM here only when B's fibers are
+// more than half full, so the dense update wastes little: the f32 FMA rate
+// bounds it.
+#include <type_traits>
+
+#include "chunk_update.cuh"
 #include "fiber_table.cuh"
 #include "tiled_gemm.cuh"
 
@@ -42,85 +46,6 @@ int spmm_sparse(const T* a, const T* vals, const int* ids, const int* counts,
   if (err != cudaSuccess) return (int)err;
   launch_tiled_gemm<T, float, T>(a, table, out, M, N, K, counts, bn,
                                  stream);
-  return (int)cudaGetLastError();
-}
-
-// --------------------------------------------------------- reference body
-constexpr int SR_M = 256, SR_N = 32, SR_KC = 32, SR_THREADS = 256;
-constexpr int SR_COLS = SR_N / (SR_THREADS / 32);  // columns per warp
-constexpr int SR_ROWS = SR_M / 32;                 // rows per lane
-static_assert(SR_N == SR_KC, "the output tile reuses the A staging buffer");
-
-template <typename T>
-__global__ void __launch_bounds__(SR_THREADS)
-    spmm_reference_kernel(const T* __restrict__ A, const T* __restrict__ vals,
-                          const int* __restrict__ ids, T* __restrict__ out,
-                          int M, int K, int N, int cap) {
-  __shared__ float As[SR_KC][SR_M + 1];  // As[k][m]; +1 keeps stores
-                                         // free of bank conflicts
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.y * SR_M, n0 = blockIdx.x * SR_N;
-
-  float acc[SR_COLS][SR_ROWS];
-  int next[SR_COLS];  // first fiber slot not yet consumed, per column
-#pragma unroll
-  for (int q = 0; q < SR_COLS; ++q) {
-    next[q] = 0;
-#pragma unroll
-    for (int r = 0; r < SR_ROWS; ++r) acc[q][r] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < K; k0 += SR_KC) {
-    for (int idx = threadIdx.x; idx < SR_M * SR_KC; idx += SR_THREADS) {
-      const int r = idx / SR_KC, c = idx % SR_KC;
-      const int m = m0 + r, k = k0 + c;
-      As[c][r] = (m < M && k < K) ? to_f32(A[(size_t)m * K + k]) : 0.f;
-    }
-    __syncthreads();
-    const int k_end = k0 + SR_KC;
-#pragma unroll
-    for (int q = 0; q < SR_COLS; ++q) {
-      const int n = n0 + warp * SR_COLS + q;  // warp-uniform
-      if (n >= N) continue;
-      const int* fid = ids + (size_t)n * cap;
-      const T* fv = vals + (size_t)n * cap;
-      int p = next[q];
-      for (; p < cap; ++p) {
-        const int id = fid[p];
-        if (id >= k_end) break;  // ids ascend: the rest is for later chunks
-        if (id < k0) continue;   // PAD_ID
-        const float v = to_f32(fv[p]);
-        const float* col = &As[id - k0][lane];
-#pragma unroll
-        for (int r = 0; r < SR_ROWS; ++r)
-          acc[q][r] = fmaf(col[32 * r], v, acc[q][r]);
-      }
-      next[q] = p;
-    }
-    __syncthreads();
-  }
-
-  // Stage the tile through shared memory so rows are written coalesced.
-  float(*Os)[SR_M + 1] = As;  // Os[n][m]
-#pragma unroll
-  for (int q = 0; q < SR_COLS; ++q)
-#pragma unroll
-    for (int r = 0; r < SR_ROWS; ++r)
-      Os[warp * SR_COLS + q][lane + 32 * r] = acc[q][r];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < SR_M * SR_N; idx += SR_THREADS) {
-    const int r = idx / SR_N, c = idx % SR_N;
-    const int m = m0 + r, n = n0 + c;
-    if (m < M && n < N) out[(size_t)m * N + n] = from_f32<T>(Os[c][r]);
-  }
-}
-
-template <typename T>
-int spmm_reference(const T* a, const T* vals, const int* ids, T* out, int M,
-                   int K, int N, int cap, cudaStream_t stream) {
-  const dim3 grid((N + SR_N - 1) / SR_N, (M + SR_M - 1) / SR_M);
-  spmm_reference_kernel<T>
-      <<<grid, SR_THREADS, 0, stream>>>(a, vals, ids, out, M, K, N, cap);
   return (int)cudaGetLastError();
 }
 
@@ -151,20 +76,37 @@ extern "C" int spmm_sparse_launch(const void* a, const void* vals,
   return (int)cudaErrorInvalidValue;
 }
 
+// spmm_reference_launch scans B (fiber kinds, chunk starts, each N tile's
+// live chunks, into b_kind, b_starts and b_live, the last zeroed) before
+// the rank update.
 extern "C" int spmm_reference_launch(const void* a, const void* vals,
-                                     const void* ids, void* out, int M, int K,
-                                     int N, int cap, int dtype,
-                                     void* stream) {
+                                     const void* ids, void* b_kind,
+                                     void* b_starts, void* b_live, int cap,
+                                     void* out, int M, int K, int N,
+                                     int a_gran, int dtype, void* stream) {
+  if (dtype != rt::kF32 && dtype != rt::kBF16)
+    return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int* i = static_cast<const int*>(ids);
-  if (dtype == rt::kF32)
-    return rt::spmm_reference<float>(
-        static_cast<const float*>(a), static_cast<const float*>(vals), i,
-        static_cast<float*>(out), M, K, N, cap, s);
-  if (dtype == rt::kBF16)
-    return rt::spmm_reference<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(vals), i,
-        static_cast<__nv_bfloat16*>(out), M, K, N, cap, s);
-  return (int)cudaErrorInvalidValue;
+  const cudaError_t err = rt::launch_fiber_scan(
+      static_cast<const int*>(ids), N, cap, K, static_cast<int*>(b_kind),
+      static_cast<int*>(b_starts), rt::CU_KC,
+      static_cast<unsigned char*>(b_live), rt::CU_N, rt::CU_KC, s);
+  if (err != cudaSuccess) return (int)err;
+  return rt::dtype_dispatch(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    rt::ChunkArgs<T> p{};
+    p.a = static_cast<const T*>(a);
+    p.a_gran = a_gran;
+    p.b_vals = static_cast<const T*>(vals);
+    p.b_ids = static_cast<const int*>(ids);
+    p.b_kind = static_cast<const int*>(b_kind);
+    p.b_runs = static_cast<const int*>(b_starts);
+    p.cap_b = cap;
+    p.live = static_cast<const unsigned char*>(b_live);
+    p.out = static_cast<T*>(out);
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    return rt::launch_chunk_update<T, rt::ALoad::kDenseRows>(p, s);
+  });
 }

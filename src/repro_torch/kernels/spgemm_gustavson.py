@@ -13,10 +13,13 @@ gather-contract over their live capacity chunks (the kernel the inner
 product's sparse body uses, storing its tile transposed); M windows A
 proves empty write zeros.
 
-``method="reference"`` — per ``(M, N)`` tile and K step of ``bk``, skips
-unless both operands have an entry there (``tile_occupancy``), expands A's
-``bk`` fibers over the tile's M range and B's fibers over the step into
-shared memory and applies a rank-``bk`` update.
+``method="reference"`` — per 128 x 128 output tile, a walk over only the K
+fibers of A that hold an entry in the M tile (``spgemm_outer.live_k_lists``,
+the outer product's pre-pass), 32 at a time: A's fibers expand over the
+tile's M window, B's over the chunk's k, into shared memory, and each chunk
+is a rank-32 update (the chunked rank-update kernel of
+``csrc/chunk_update.cuh``, shared with the SpMM and inner reference
+bodies); a chunk where B holds nothing in the N tile skips its update.
 
 ``"auto"`` keeps the TPU's rule: sparse when ``4·cap_b <= K``.
 
@@ -37,19 +40,17 @@ from repro_torch.formats.ell import (
     block_window_nnz,
     ell_to_dense,
     pad_capacity,
-    tile_occupancy,
 )
 from repro_torch.kernels import _build
-from repro_torch.kernels.spgemm_inner import _ordered, _step_offsets
-from repro_torch.kernels.spmm import fit_block
+from repro_torch.kernels.spgemm_outer import live_k_lists
+from repro_torch.kernels.spmm import (
+    REFERENCE_CHUNK,
+    REFERENCE_TILE,
+    fit_block,
+)
 
 #: Capacity-chunk width of the gather contraction over B's column fibers.
 GUSTAVSON_FIBER_CHUNK = 16
-
-#: The reference kernel's largest K step, and its output tile's M extent
-#: (A's occupancy and slot ranges are per M tile of this width).
-GUSTAVSON_REFERENCE_BK_MAX = 128
-GUSTAVSON_REFERENCE_TILE_M = 128
 
 #: Kernel launches per body since the counts were last reset.
 launches = {"gustavson_sparse": 0, "gustavson_reference": 0}
@@ -59,7 +60,7 @@ _SIGNATURES = {
     "gustavson_sparse_launch": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _I,
                                 _P, _P, _I, _I, _I, _I, _P],
     "gustavson_reference_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                                   _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+                                   _P, _P, _I, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -78,9 +79,9 @@ def spgemm_gustavson(a: EllMatrix, b: EllMatrix, *, bm: int = 128,
                      method: str = "auto") -> torch.Tensor:
     """A (K column fibers, ids->M) × B (N column fibers, ids->K) -> ``(M,
     N)`` in ``result_type(a.vals, b.vals)``. ``bm`` is the M window of the
-    sparse body's empty-window test, ``bn`` the fiber block of B's chunk
-    counts and occupancy, ``bk`` the reference body's K step; all shrink
-    to divide ragged shapes."""
+    sparse body's empty-window test and ``bn`` the fiber block of B's
+    chunk counts, both shrunk to divide ragged shapes; ``bk`` is the JAX
+    package's K step, which no body here depends on."""
     assert a.major_axis == 1 and b.major_axis == 1
     m, k = a.shape
     kb, n = b.shape
@@ -92,12 +93,13 @@ def spgemm_gustavson(a: EllMatrix, b: EllMatrix, *, bm: int = 128,
     if resolve_method(method, k, b.cap) == "sparse":
         return gustavson_sparse(a, b, bm=bm, bn=bn,
                                 fc=min(GUSTAVSON_FIBER_CHUNK, b.cap))
-    return gustavson_reference(a, b, bn=bn, bk=fit_block(k, bk))
+    return gustavson_reference(a, b, bn=bn, bk=bk)
 
 
 def spgemm_gustavson_plain(a: EllMatrix, b: EllMatrix) -> torch.Tensor:
     """Plain PyTorch version of both bodies: both operands densified
-    (``ell_to_dense``) and multiplied in f32. B is densified too rather
+    (``ell_to_dense``, which drops an id outside ``[0, minor_size)`` as the
+    TPU's expansion does) and multiplied in f32. B is densified too rather
     than gathered slot by slot: a gather of ``(N, cap, M)`` table rows
     costs ``N·cap·M`` loads, about 2.6 TB at m3plates, where B is dense."""
     out_dtype = torch.promote_types(a.vals.dtype, b.vals.dtype)
@@ -148,40 +150,42 @@ def gustavson_sparse(a: EllMatrix, b: EllMatrix, *, bm: int, bn: int,
 
 def gustavson_reference(a: EllMatrix, b: EllMatrix, *, bn: int,
                         bk: int) -> torch.Tensor:
-    """The reference body: occupancy-skipped per-tile expansion + rank-bk
-    updates on the card, or :func:`spgemm_gustavson_plain` for CPU
-    tensors.
+    """The reference body: live-K rank updates per output tile on the card
+    (``spgemm_outer.live_k_lists``), or :func:`spgemm_gustavson_plain` for
+    CPU tensors.
 
-    The kernel reads A's entries in an M tile, and B's in a K step, of an
-    ordered fiber (see ``spgemm_inner._ordered``) as one run of slots, and
-    scans every slot of a fiber out of order. ``bk`` must divide K and be
-    at most :data:`GUSTAVSON_REFERENCE_BK_MAX`.
-    """
+    The kernel reads A's entries in an M tile of an ordered or dense fiber
+    (see ``spgemm_inner._ordered``) as one run of slots; it indexes a dense
+    B fiber at slot k, reads an ordered one's run in an aligned chunk and
+    merges it from a cursor in any other, and scans a fiber out of order
+    whole. ``bn`` and ``bk`` are accepted
+    for the common signature and not used: the tile and chunk are the
+    kernel's own."""
     if a.vals.device.type == "cpu":
         return spgemm_gustavson_plain(a, b)
+    return _gustavson_reference_launch(a, b)
+
+
+def _gustavson_reference_launch(a: EllMatrix, b: EllMatrix) -> torch.Tensor:
     code = _check("gustavson_reference", a, b)
     m, k = a.shape
     n = b.shape[1]
-    if n % bn or k % bk or bk > GUSTAVSON_REFERENCE_BK_MAX:
-        raise ValueError(f"gustavson_reference: {m}x{k}x{n} with bn={bn}, "
-                         f"bk={bk} (bk <= {GUSTAVSON_REFERENCE_BK_MAX} "
-                         "dividing K)")
-    k_steps = k // bk
-    occ_a = tile_occupancy(a, GUSTAVSON_REFERENCE_TILE_M)   # (K, M tiles)
-    occ_b = tile_occupancy(b, bk)                           # (N, K steps)
-    a_occ = occ_a.reshape(k_steps, bk, -1).sum(1, dtype=torch.int32)
-    b_occ = occ_b.reshape(n // bn, bn, k_steps).sum(1, dtype=torch.int32)
-    a_off, b_off = _step_offsets(occ_a), _step_offsets(occ_b)
-    a_ord, b_ord = _ordered(a), _ordered(b)
+    if -(-m // REFERENCE_TILE) > 65535:
+        raise ValueError(f"gustavson_reference: M={m} gives more than 65535 "
+                         "M tiles (the grid's y extent)")
+    live_k, live_n, a_off = live_k_lists(a, REFERENCE_TILE)
     dev = a.vals.device
+    kinds = torch.empty(k + n, dtype=torch.int32, device=dev)
+    b_runs = torch.empty((-(-k // REFERENCE_CHUNK) + 1, n), dtype=torch.int32,
+                         device=dev)
     out = torch.empty((m, n), dtype=a.vals.dtype, device=dev)
     lib = _build.load("spgemm_gustavson", _SIGNATURES)
     P = _build.ptr
     with torch.cuda.device(dev):
         _build.check(lib.gustavson_reference_launch(
-            P(a.vals), P(a.ids), P(a_off), P(a_ord), a.cap, P(b.vals),
-            P(b.ids), P(b_off), P(b_ord), b.cap, P(a_occ), P(b_occ), bn,
-            P(out), m, k, n, bk, code, _build.stream(dev)),
+            P(a.vals), P(a.ids), P(a_off), P(kinds), a.cap, P(b.vals),
+            P(b.ids), P(kinds[k:]), P(b_runs), b.cap, P(live_k), P(live_n),
+            live_k.shape[1], P(out), m, k, n, code, _build.stream(dev)),
             "gustavson_reference")
     launches["gustavson_reference"] += 1
     return out

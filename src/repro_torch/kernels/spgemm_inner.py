@@ -11,9 +11,12 @@ TPU's build-at-the-first-M-step trick races on CUDA), then gathers table
 rows at A's coordinates and contracts them over A's live capacity chunks;
 fiber blocks either operand proves empty write zeros.
 
-``method="reference"`` — per ``(M, N)`` tile and K step of ``bk``, skips
-unless both operands have an entry there (``tile_occupancy``), expands both
-operands' fibers into shared memory and applies a rank-``bk`` update.
+``method="reference"`` — per 128 x 128 output tile, a walk over the k that
+some row fiber of the M tile holds (:func:`live_k_rows`), 32 at a time:
+both operands' fibers are merged over each chunk into shared memory and
+applied as a rank-32 update (the chunked rank-update kernel of
+``csrc/chunk_update.cuh``, shared with the SpMM and Gustavson reference
+bodies); a chunk where B holds nothing in the N tile skips its update.
 
 ``"auto"`` keeps the TPU's rule: sparse when ``4·cap_a <= K``.
 
@@ -33,16 +36,17 @@ from repro_torch.formats.ell import (
     EllMatrix,
     block_chunk_counts,
     pad_capacity,
-    tile_occupancy,
 )
 from repro_torch.kernels import _build
-from repro_torch.kernels.spmm import fit_block
+from repro_torch.kernels.spgemm_outer import compact_live, tile_live_lists
+from repro_torch.kernels.spmm import (
+    REFERENCE_CHUNK,
+    REFERENCE_TILE,
+    fit_block,
+)
 
 #: Capacity-chunk width of the sparse body's live-chunk trip count.
 INNER_FIBER_CHUNK = 16
-
-#: The reference kernel's largest K step (its shared-memory tiles).
-INNER_REFERENCE_BK_MAX = 128
 
 #: Kernel launches per body since the counts were last reset.
 launches = {"inner_sparse": 0, "inner_reference": 0}
@@ -52,7 +56,8 @@ _SIGNATURES = {
     "inner_sparse_launch": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I,
                             _P, _P, _I, _I, _I, _I, _P],
     "inner_reference_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                               _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+                               _P, _I, _P, _I, _I, _I, _I, _P],
+    "fiber_scan_launch": [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P],
 }
 
 
@@ -70,9 +75,9 @@ def spgemm_inner(a: EllMatrix, b: EllMatrix, *, bm: int = 128,
                  bn: int = 128, bk: int = 128,
                  method: str = "auto") -> torch.Tensor:
     """A (M row fibers, ids->K) × B (N column fibers, ids->K) -> ``(M, N)``
-    in ``result_type(a.vals, b.vals)``. ``bm``/``bn`` are the fiber blocks
-    of the chunk counts and occupancy, ``bk`` the reference body's K step;
-    all shrink to divide ragged shapes."""
+    in ``result_type(a.vals, b.vals)``. ``bm``/``bn`` are the sparse body's
+    fiber blocks of the chunk counts and shrink to divide ragged shapes;
+    ``bk`` is the JAX package's K step, which no body here depends on."""
     assert a.major_axis == 0 and b.major_axis == 1
     m, k = a.shape
     kb, n = b.shape
@@ -84,23 +89,25 @@ def spgemm_inner(a: EllMatrix, b: EllMatrix, *, bm: int = 128,
     if resolve_method(method, k, a.cap) == "sparse":
         return inner_sparse(a, b, bm=bm, bn=bn,
                             fc=min(INNER_FIBER_CHUNK, a.cap))
-    return inner_reference(a, b, bm=bm, bn=bn, bk=fit_block(k, bk))
+    return inner_reference(a, b, bm=bm, bn=bn, bk=bk)
 
 
 def spgemm_inner_plain(a: EllMatrix, b: EllMatrix) -> torch.Tensor:
     """Plain PyTorch version of both bodies: B scattered to a dense ``(K,
     N)`` f32 table, then ``out[m, :] = Σ_c a.vals[m, c] · table[a.ids[m,
-    c], :]`` over live slots, in row chunks that bound the gathered
+    c], :]`` over live slots (ids in ``[0, K)``; any other id is dropped,
+    as the TPU's expansion drops it), in row chunks that bound the gathered
     ``(rows, cap, N)`` block."""
     (m, k), n = a.shape, b.shape[1]
     out_dtype = torch.promote_types(a.vals.dtype, b.vals.dtype)
     dev = a.vals.device
     table = torch.zeros((k + 1, n), dtype=torch.float32, device=dev)
     cols = torch.arange(b.n_fibers, device=dev)[:, None].expand_as(b.ids)
-    table.index_put_((torch.where(b.ids >= 0, b.ids, k).long(), cols),
+    b_live = (b.ids >= 0) & (b.ids < k)
+    table.index_put_((torch.where(b_live, b.ids, k).long(), cols),
                      b.vals.float(), accumulate=True)
     table = table[:k]
-    live = a.ids >= 0
+    live = (a.ids >= 0) & (a.ids < k)
     safe = torch.where(live, a.ids, 0).long()
     vals = torch.where(live, a.vals.float(), 0.0)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
@@ -153,16 +160,6 @@ def inner_sparse(a: EllMatrix, b: EllMatrix, *, bm: int, bn: int,
     return out
 
 
-def _step_offsets(occ: torch.Tensor) -> torch.Tensor:
-    """``(n_fibers, k_steps + 1)`` int32 prefix sums of the per-step
-    occupancy: with ids ascending, the slots of step ``kk`` in fiber ``f``
-    are ``[off[f, kk], off[f, kk + 1])``."""
-    off = torch.zeros((occ.shape[0], occ.shape[1] + 1), dtype=torch.int32,
-                      device=occ.device)
-    off[:, 1:] = torch.cumsum(occ, dim=1)
-    return off
-
-
 def _ordered(e: EllMatrix) -> torch.Tensor:
     """``(n_fibers,)`` bool: the fiber's live ids lie in ``[0,
     minor_size)`` and ascend, and its PAD slots come last, as
@@ -173,40 +170,58 @@ def _ordered(e: EllMatrix) -> torch.Tensor:
     return in_range & (key[:, 1:] >= key[:, :-1]).all(dim=1)
 
 
+def live_k_rows(a: EllMatrix) -> tuple:
+    """The reference body's walk over A (M row fibers, ids -> K): per M
+    tile of :data:`spmm.REFERENCE_TILE` rows, the ascending k some row of
+    the tile holds, ``(live_k (T, K + 1), live_n (T,))`` int32 (see
+    ``spgemm_outer.tile_live_lists``). The plain version of the wrapper's
+    pre-pass, which flags the k in the launch's fiber scan on the card and
+    compacts the flags with ``compact_live``."""
+    return tile_live_lists(a, REFERENCE_TILE)
+
+
 def inner_reference(a: EllMatrix, b: EllMatrix, *, bm: int, bn: int,
                     bk: int) -> torch.Tensor:
-    """The reference body: occupancy-skipped per-tile expansion + rank-bk
-    updates on the card, or :func:`spgemm_inner_plain` for CPU tensors.
+    """The reference body: live-k rank updates per output tile on the card
+    (:func:`live_k_rows`), or :func:`spgemm_inner_plain` for CPU tensors.
 
-    The kernel reads a K step's entries of an ordered fiber (see
-    :func:`_ordered`) as one run of slots, and scans every slot of a fiber
-    out of order. ``bk`` must divide K and be at most
-    :data:`INNER_REFERENCE_BK_MAX`.
-    """
+    The kernel merges an ordered fiber (see :func:`_ordered`) over each
+    chunk from a cursor, indexes a dense one at slot k and scans a fiber
+    out of order whole. ``bm``, ``bn`` and ``bk`` are accepted for the
+    common signature and not used: the tile and chunk are the kernel's
+    own."""
     if a.vals.device.type == "cpu":
         return spgemm_inner_plain(a, b)
+    return _inner_reference_launch(a, b)
+
+
+def _inner_reference_launch(a: EllMatrix, b: EllMatrix) -> torch.Tensor:
     code = _check("inner_reference", a, b)
     (m, k), n = a.shape, b.shape[1]
-    if m % bm or n % bn or k % bk or bk > INNER_REFERENCE_BK_MAX:
-        raise ValueError(f"inner_reference: {m}x{k}x{n} with bm={bm}, "
-                         f"bn={bn}, bk={bk} (bk <= "
-                         f"{INNER_REFERENCE_BK_MAX} dividing K)")
-    k_steps = k // bk
-    occ_a = tile_occupancy(a, bk)
-    occ_b = tile_occupancy(b, bk)
-    a_occ = occ_a.reshape(m // bm, bm, k_steps).sum(1, dtype=torch.int32)
-    b_occ = occ_b.reshape(n // bn, bn, k_steps).sum(1, dtype=torch.int32)
-    a_off, b_off = _step_offsets(occ_a), _step_offsets(occ_b)
-    a_ord, b_ord = _ordered(a), _ordered(b)
+    if -(-m // REFERENCE_TILE) > 65535:
+        raise ValueError(f"inner_reference: M={m} gives more than 65535 M "
+                         "tiles (the grid's y extent)")
+    n_chunks = -(-k // REFERENCE_CHUNK)
     dev = a.vals.device
+    kinds = torch.empty(m + n, dtype=torch.int32, device=dev)
+    a_runs = torch.empty((n_chunks + 1, m), dtype=torch.int32, device=dev)
+    b_runs = torch.empty((n_chunks + 1, n), dtype=torch.int32, device=dev)
+    flags = torch.zeros((-(-m // REFERENCE_TILE), k), dtype=torch.uint8,
+                        device=dev)
     out = torch.empty((m, n), dtype=a.vals.dtype, device=dev)
     lib = _build.load("spgemm_inner", _SIGNATURES)
     P = _build.ptr
     with torch.cuda.device(dev):
+        # A's kinds, runs and each M tile's live k (flags), then the lists.
+        _build.check(lib.fiber_scan_launch(
+            P(a.ids), m, a.cap, k, P(kinds), P(a_runs), REFERENCE_CHUNK,
+            P(flags), REFERENCE_TILE, 1, _build.stream(dev)),
+            "inner_reference (fiber scan)")
+        live_k, live_n = compact_live(flags.bool())
         _build.check(lib.inner_reference_launch(
-            P(a.vals), P(a.ids), P(a_off), P(a_ord), a.cap, P(b.vals),
-            P(b.ids), P(b_off), P(b_ord), b.cap, P(a_occ), bm, P(b_occ), bn,
-            P(out), m, k, n, bk, code, _build.stream(dev)),
+            P(a.vals), P(a.ids), P(kinds), P(a_runs), a.cap, P(b.vals),
+            P(b.ids), P(kinds[m:]), P(b_runs), b.cap, P(live_k), P(live_n),
+            live_k.shape[1], P(out), m, k, n, code, _build.stream(dev)),
             "inner_reference")
     launches["inner_reference"] += 1
     return out

@@ -138,6 +138,65 @@ def spgemm_outer_plain(a: EllMatrix, b: EllMatrix) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- pre-passes
+def compact_live(live: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(T, X)`` bool -> ``(lists, counts)``: row ``t`` of ``lists`` ``(T,
+    X + 1)`` int32 starts with the ascending ``x`` where ``live[t, x]``
+    (the rest is unused), and ``counts`` ``(T,)`` int32 says how many. A
+    cumsum and a scatter on the device, no host sync."""
+    t, x = live.shape
+    dev = live.device
+    counts = live.sum(dim=1, dtype=torch.int32)
+    dest = torch.where(live, torch.cumsum(live, dim=1) - 1, x)
+    lists = torch.zeros((t, x + 1), dtype=torch.int32, device=dev)
+    lists.scatter_(1, dest, torch.arange(x, dtype=torch.int32,
+                                         device=dev).expand(t, x))
+    return lists, counts
+
+
+def tile_live_lists(e: EllMatrix, tile: int, group: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per tile of ``tile`` consecutive fibers of ``e``, the ascending
+    minor groups (``id // group``) that some fiber of the tile holds, as
+    :func:`compact_live` gives them: ``(T, G + 1)`` and ``(T,)`` int32 with
+    ``T = ceil(n_fibers / tile)`` and ``G = ceil(minor_size / group)``.
+    Ids outside ``[0, minor_size)`` are dropped, PAD among them. The
+    inner reference body walks its M tiles' live k (``group`` 1), SpMM's
+    its N tiles' live K chunks. A scatter into a fixed-size buffer: no
+    host sync."""
+    nf, minor = e.n_fibers, e.minor_size
+    n_tiles = -(-nf // tile)
+    n_groups = -(-minor // group)
+    dev = e.ids.device
+    key = torch.where((e.ids >= 0) & (e.ids < minor),
+                      torch.div(e.ids, group, rounding_mode="floor"),
+                      n_groups).long()
+    row = torch.div(torch.arange(nf, device=dev), tile,
+                    rounding_mode="floor")[:, None]
+    live = torch.zeros((n_tiles, n_groups + 1), dtype=torch.bool, device=dev)
+    live.view(-1).scatter_(0, (row * (n_groups + 1) + key).reshape(-1), True)
+    return compact_live(live[:, :n_groups])
+
+
+def fiber_chunk_starts(e: EllMatrix, chunk: int) -> torch.Tensor:
+    """``(ceil(minor_size / chunk) + 1, n_fibers)`` int32: row ``q`` holds,
+    per fiber, the first slot whose id is at least ``q·chunk`` (PAD and ids
+    outside ``[0, minor_size)`` count as past every chunk), so an ordered
+    fiber's entries in chunk ``q`` are the slots ``[row q, row q + 1)``
+    (unused for a fiber out of order). A sorted search on the device, no
+    host sync. The plain version of the starts that the reference bodies'
+    fiber scan (``csrc/fiber_search.cuh``) writes on the card, in the same
+    layout (fiber-contiguous rows, so a warp reads 16 fibers' starts in one
+    access)."""
+    nf, minor = e.n_fibers, e.minor_size
+    n_chunks = -(-minor // chunk)
+    key = torch.where((e.ids >= 0) & (e.ids < minor), e.ids, minor)
+    bounds = torch.arange(0, (n_chunks + 1) * chunk, chunk, dtype=key.dtype,
+                          device=key.device).clamp_(max=minor)
+    starts = torch.searchsorted(key, bounds.expand(nf, -1).contiguous(),
+                                out_int32=True)
+    return starts.T.contiguous()
+
+
 def live_k_lists(a: EllMatrix, tile: int = OUTER_REFERENCE_TILE_M
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reference body's walk over A (K fibers, ids -> M), per M tile of
@@ -161,12 +220,7 @@ def live_k_lists(a: EllMatrix, tile: int = OUTER_REFERENCE_TILE_M
     key = torch.where((a.ids >= 0) & (a.ids < m), a.ids, n_tiles * tile)
     live = torch.zeros((k, n_tiles + 1), dtype=torch.bool, device=dev)
     live.scatter_(1, torch.div(key, tile, rounding_mode="floor").long(), True)
-    live_t = live[:, :n_tiles].T           # (T, K)
-    live_n = live_t.sum(dim=1, dtype=torch.int32)
-    dest = torch.where(live_t, torch.cumsum(live_t, dim=1) - 1, k)
-    live_k = torch.zeros((n_tiles, k + 1), dtype=torch.int32, device=dev)
-    live_k.scatter_(1, dest, torch.arange(k, dtype=torch.int32,
-                                          device=dev).expand(n_tiles, k))
+    live_k, live_n = compact_live(live[:, :n_tiles].T)
     bounds = torch.arange(0, (n_tiles + 1) * tile, tile, dtype=torch.int32,
                           device=dev).clamp_(max=m)
     a_off = torch.searchsorted(key, bounds.expand(k, -1).contiguous(),

@@ -11,9 +11,12 @@ build-at-the-first-grid-step trick races on CUDA), then contracts ``A ·
 table`` with a shared-memory tiled f32 kernel; fiber blocks with no live
 chunk write zeros.
 
-``method="reference"`` — never builds a table: each output column walks its
-fiber's nonzeros and gathers the matching columns of A from a shared-memory
-staging buffer.
+``method="reference"`` — never builds a table: per 128 x 128 output tile a
+walk over the 32-wide K chunks some B fiber of the N tile holds
+(:func:`live_chunks`), A's chunk copied into shared memory with
+``cp.async`` and B's fibers expanded over it, each chunk a rank-32 update
+(the chunked rank-update kernel of ``csrc/chunk_update.cuh``, shared with
+the inner and Gustavson reference bodies).
 
 ``"auto"`` keeps the TPU's rule: sparse when ``2·cap <= K``.
 
@@ -31,9 +34,16 @@ import torch
 
 from repro_torch.formats.ell import EllMatrix, block_chunk_counts
 from repro_torch.kernels import _build
+from repro_torch.kernels.spgemm_outer import tile_live_lists
 
 #: Capacity-chunk width over which the scatter walks live slots.
 SPMM_FIBER_CHUNK = 64
+
+#: The reference kernel's output tile (``CU_N`` in ``csrc/chunk_update.cuh``)
+#: and the K chunk of its rank updates (``CU_KC``): its live-chunk lists are
+#: per N tile of this width.
+REFERENCE_TILE = 128
+REFERENCE_CHUNK = 32
 
 #: Kernel launches per body since the counts were last reset.
 launches = {"spmm_sparse": 0, "spmm_reference": 0}
@@ -41,7 +51,7 @@ launches = {"spmm_sparse": 0, "spmm_reference": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "spmm_sparse_launch": [_P] * 6 + [_I] * 7 + [_P],
-    "spmm_reference_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "spmm_reference_launch": [_P] * 6 + [_I] + [_P] + [_I] * 5 + [_P],
 }
 
 
@@ -89,13 +99,14 @@ def spmm(a: torch.Tensor, b: EllMatrix, *, bn: int = 128,
 
 def spmm_plain(a: torch.Tensor, b: EllMatrix) -> torch.Tensor:
     """Plain PyTorch version of both bodies: ``out[:, n] = Σ_c a[:, ids[n,
-    c]] · vals[n, c]`` over live slots, accumulated in f32, in column chunks
-    that bound the gathered ``(M, chunk, cap)`` block."""
-    m = a.shape[0]
+    c]] · vals[n, c]`` over live slots (ids in ``[0, K)``; any other id is
+    dropped, as the TPU's expansion drops it), accumulated in f32, in
+    column chunks that bound the gathered ``(M, chunk, cap)`` block."""
+    m, k = a.shape
     n, cap = b.n_fibers, b.cap
     out_dtype = torch.promote_types(a.dtype, b.vals.dtype)
     af = a.float()
-    live = b.ids >= 0
+    live = (b.ids >= 0) & (b.ids < k)
     safe = torch.where(live, b.ids, 0).long()
     vals = torch.where(live, b.vals.float(), 0.0)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
@@ -105,6 +116,29 @@ def spmm_plain(a: torch.Tensor, b: EllMatrix) -> torch.Tensor:
         g = af[:, safe[n0:n1].reshape(-1)].reshape(m, n1 - n0, cap)
         out[:, n0:n1] = (g * vals[n0:n1][None]).sum(dim=-1).to(out_dtype)
     return out
+
+
+def live_chunks(b: EllMatrix) -> tuple:
+    """The reference body's walk: per N tile of :data:`REFERENCE_TILE`
+    fibers, the ascending :data:`REFERENCE_CHUNK`-wide K chunks some fiber
+    of the tile holds, ``(chunks (T, C + 1), counts (T,))`` int32 with ``C
+    = ceil(K / REFERENCE_CHUNK)`` (see ``spgemm_outer.tile_live_lists``).
+    The plain version of the kernel's own walk: the launch's fiber scan
+    flags these chunks on the card, and the kernel skips the others."""
+    return tile_live_lists(b, REFERENCE_TILE, REFERENCE_CHUNK)
+
+
+def row_granule(a: torch.Tensor) -> int:
+    """Elements per ``cp.async`` copy of ``a``'s rows in the reference
+    kernel: the widest of 16, 8 and 4 bytes that every row start is
+    aligned to; 1 for a bf16 row of odd length, which the kernel then
+    copies element by element with plain loads."""
+    size = a.element_size()
+    row = a.shape[1] * size
+    for nbytes in (16, 8, 4):
+        if nbytes >= size and row % nbytes == 0 and a.data_ptr() % nbytes == 0:
+            return nbytes // size
+    return 1
 
 
 def _check(what: str, a: torch.Tensor, b: EllMatrix) -> int:
@@ -143,19 +177,33 @@ def spmm_sparse(a: torch.Tensor, b: EllMatrix, *, bn: int) -> torch.Tensor:
 
 
 def spmm_reference(a: torch.Tensor, b: EllMatrix) -> torch.Tensor:
-    """The reference body: fiber walk over shared-memory staged A on the
-    card, or :func:`spmm_plain` for CPU tensors."""
+    """The reference body: live-chunk rank updates on the card
+    (:func:`live_chunks`), or :func:`spmm_plain` for CPU tensors."""
     if a.device.type == "cpu":
         return spmm_plain(a, b)
+    return _spmm_reference_launch(a, b)
+
+
+def _spmm_reference_launch(a: torch.Tensor, b: EllMatrix) -> torch.Tensor:
     code = _check("spmm_reference", a, b)
     m, k = a.shape
     n, cap = b.n_fibers, b.cap
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if -(-m // REFERENCE_TILE) > 65535:
+        raise ValueError(f"spmm_reference: M={m} gives more than 65535 M "
+                         "tiles (the grid's y extent)")
+    n_chunks = -(-k // REFERENCE_CHUNK)
+    dev = a.device
+    b_kind = torch.empty(n, dtype=torch.int32, device=dev)
+    b_starts = torch.empty((n_chunks + 1, n), dtype=torch.int32, device=dev)
+    b_live = torch.zeros((-(-n // REFERENCE_TILE), n_chunks),
+                         dtype=torch.uint8, device=dev)
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
     lib = _build.load("spmm", _SIGNATURES)
-    with torch.cuda.device(a.device):
+    P = _build.ptr
+    with torch.cuda.device(dev):
         _build.check(lib.spmm_reference_launch(
-            _build.ptr(a), _build.ptr(b.vals), _build.ptr(b.ids),
-            _build.ptr(out), m, k, n, cap, code, _build.stream(a.device)),
+            P(a), P(b.vals), P(b.ids), P(b_kind), P(b_starts), P(b_live),
+            cap, P(out), m, k, n, row_granule(a), code, _build.stream(dev)),
             "spmm_reference")
     launches["spmm_reference"] += 1
     return out

@@ -145,3 +145,70 @@ def test_jax_ell_carried_into_the_port(dtype):
     np.testing.assert_array_equal(
         tell.ell_to_dense(t).float().numpy(),
         np.asarray(jell.ell_to_dense(j), np.float32))
+
+
+def with_ids_out_of_range(x, major_axis, tile, where):
+    """Both packages' ELLs of ``x`` (row fibers or column fibers, each at
+    its fullest fiber's capacity) with the last live slot of the middle or
+    the last fiber holding an id at ``(n_tiles + 1)·tile``, and another
+    live slot of that fiber holding one far past it, so the fiber keeps its
+    order."""
+    j, t = both(x, major_axis, max(fiber_max(x, major_axis), 1))
+    ids = np.asarray(j.ids).copy()
+    f = ids.shape[0] // 2 if where == "middle" else ids.shape[0] - 1
+    live = int((ids[f] >= 0).sum())
+    assert live >= 2
+    n_tiles = -(-t.minor_size // tile)
+    ids[f, live - 2] = (n_tiles + 1) * tile
+    ids[f, live - 1] = (n_tiles + 1) * tile + 5 * tile + 3
+    j = jell.EllMatrix(vals=j.vals, ids=jnp.asarray(ids), lens=j.lens,
+                       shape=j.shape, major_axis=j.major_axis)
+    t = tell.EllMatrix(t.vals, torch.from_numpy(ids), t.lens, t.shape,
+                       t.major_axis)
+    return j, t, f
+
+
+@pytest.mark.parametrize("where", ["middle", "last"])
+@pytest.mark.parametrize("tile", [16, 50, 128])
+@pytest.mark.parametrize("major_axis", [0, 1])
+def test_tile_occupancy_drops_ids_out_of_range_like_jax(major_axis, tile,
+                                                        where):
+    """An id at or past ``(n_tiles + 1)·tile`` counts nowhere, as in the
+    JAX package: it neither spills into the next fiber's tiles nor breaks
+    the last fiber's row."""
+    rng = np.random.default_rng(7)
+    x = sparse(rng, 60, 70, 0.2)
+    j, t, f = with_ids_out_of_range(x, major_axis, tile, where)
+    want = np.asarray(jell.tile_occupancy(j, tile))
+    got = tell.tile_occupancy(t, tile)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    clean = tell.tile_occupancy(both(x, major_axis, t.cap)[1], tile).numpy()
+    assert got.numpy()[f].sum() == clean[f].sum() - 2
+    np.testing.assert_array_equal(np.delete(got.numpy(), f, axis=0),
+                                  np.delete(clean, f, axis=0))
+
+
+@pytest.mark.parametrize("where", ["middle", "last"])
+@pytest.mark.parametrize("window", [16, 50, 128])
+@pytest.mark.parametrize("major_axis", [0, 1])
+def test_block_window_nnz_drops_ids_out_of_range_like_jax(major_axis,
+                                                          window, where):
+    rng = np.random.default_rng(8)
+    x = sparse(rng, 60, 70, 0.2)
+    j, t, _ = with_ids_out_of_range(x, major_axis, window, where)
+    want = np.asarray(jell.block_window_nnz(j, window))
+    got = tell.block_window_nnz(t, window)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    clean = tell.block_window_nnz(both(x, major_axis, t.cap)[1], window)
+    assert int(got.sum()) == int(clean.sum()) - 2
+
+
+@pytest.mark.parametrize("where", ["middle", "last"])
+def test_ell_to_dense_drops_ids_out_of_range_like_jax(where):
+    rng = np.random.default_rng(9)
+    x = sparse(rng, 40, 50, 0.3)
+    j, t, _ = with_ids_out_of_range(x, 1, 16, where)
+    np.testing.assert_array_equal(tell.ell_to_dense(t).numpy(),
+                                  np.asarray(jell.ell_to_dense(j)))

@@ -32,6 +32,7 @@ from repro_torch.formats.taxonomy import DataflowClass as TClass
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import spgemm_gustavson as tgust
+from repro_torch.kernels import spgemm_inner as tinner
 
 # ``repro.kernels`` and ``repro.core`` re-export functions named like
 # their modules.
@@ -237,11 +238,11 @@ def test_gustavson_fibers_out_of_order():
 
     sa, sb = shuffle(ta), shuffle(tb)
     for e, s in ((ta, sa), (tb, sb)):
-        assert bool(tgust._ordered(e).all())
+        assert bool(tinner._ordered(e).all())
         key = np.where(s.ids.numpy() >= 0, s.ids.numpy(), s.minor_size)
         want = (np.diff(key, axis=1) >= 0).all(axis=1)
         assert not want.all()
-        np.testing.assert_array_equal(tgust._ordered(s).numpy(), want)
+        np.testing.assert_array_equal(tinner._ordered(s).numpy(), want)
     for method in ("sparse", "reference"):
         got = tops.spgemm_gustavson(sa, sb, method=method, device="cpu")
         np.testing.assert_allclose(got.numpy(), a @ b, **tol("float32"))
@@ -341,3 +342,23 @@ def test_execute_schedule_cost_sink_matches_jax(name, max_elems):
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                **tol("float32"))
     np.testing.assert_allclose(got.numpy(), a @ b, **tol("float32"))
+
+
+@pytest.mark.parametrize("where", ["middle", "last"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spgemm_gustavson_plain_drops_ids_out_of_range_like_jax(dtype,
+                                                                 where):
+    """``spgemm_gustavson_plain`` on an A fiber holding an id past M and a
+    B fiber holding one past K equals JAX's reference body in interpret
+    mode, which drops both (the sparse bodies do not take such operands)."""
+    from test_torch_kernels import with_bad_id
+
+    a, b, ja, ta, jb, tb = operands((256, 256, 256), 0.3, dtype)
+    ja, ta = with_bad_id(ja, ta, where)
+    jb, tb = with_bad_id(jb, tb, where)
+    want = jops.spgemm_gustavson(ja, jb, interpret=True, method="reference")
+    got = tgust.spgemm_gustavson_plain(ta, tb)
+    assert got.dtype == TORCH_DTYPE[dtype]
+    assert_close(got, want, dtype)
+    assert_close(tops.spgemm_gustavson(ta, tb, method="reference",
+                                       device="cpu"), want, dtype)

@@ -337,3 +337,52 @@ def test_inner_reference_flags_unordered_fibers(major_axis):
     bad = tell.EllMatrix(e.vals, ids, e.lens, e.shape, e.major_axis)
     np.testing.assert_array_equal(tinner._ordered(bad).numpy(),
                                   np.arange(e.n_fibers) != 0)
+
+
+def with_bad_id(j, t, where, tile=128):
+    """Both packages' ELLs with the last live slot of the middle or last
+    fiber holding an id past the minor size, at or beyond ``(n_tiles +
+    1)·tile`` (order kept)."""
+    ids = np.asarray(j.ids).copy()
+    f = ids.shape[0] // 2 if where == "middle" else ids.shape[0] - 1
+    live = int((ids[f] >= 0).sum())
+    assert live >= 1
+    ids[f, live - 1] = (-(-t.minor_size // tile) + 1) * tile + 7
+    j = jF.EllMatrix(vals=j.vals, ids=jnp.asarray(ids), lens=j.lens,
+                     shape=j.shape, major_axis=j.major_axis)
+    t = tell.EllMatrix(t.vals, torch.from_numpy(ids), t.lens, t.shape,
+                       t.major_axis)
+    return j, t
+
+
+@pytest.mark.parametrize("where", ["middle", "last"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spmm_plain_drops_ids_out_of_range_like_jax(dtype, where):
+    """``spmm_plain`` on a B fiber holding an id past K equals JAX's
+    reference body in interpret mode, which drops the id (the sparse
+    bodies do not take such operands)."""
+    a, b, jb, tb = spmm_operands((256, 256, 256), 0.3, dtype)
+    jb, tb = with_bad_id(jb, tb, where)
+    want = jops.spmm(to_jax(a, dtype), jb, interpret=True,
+                     method="reference")
+    got = tspmm.spmm_plain(to_torch(a, dtype), tb)
+    assert got.dtype == TORCH_DTYPE[dtype]
+    assert_close(got, want, dtype)
+    assert_close(tops.spmm(to_torch(a, dtype), tb, method="reference",
+                           device="cpu"), want, dtype)
+
+
+@pytest.mark.parametrize("where", ["middle", "last"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spgemm_inner_plain_drops_ids_out_of_range_like_jax(dtype, where):
+    """``spgemm_inner_plain`` on an A row fiber and a B fiber each holding
+    an id past K equals JAX's reference body in interpret mode."""
+    a, b, ja, ta, jb, tb = inner_operands((256, 256, 256), 0.3, dtype)
+    ja, ta = with_bad_id(ja, ta, where)
+    jb, tb = with_bad_id(jb, tb, where)
+    want = jops.spgemm_inner(ja, jb, interpret=True, method="reference")
+    got = tinner.spgemm_inner_plain(ta, tb)
+    assert got.dtype == TORCH_DTYPE[dtype]
+    assert_close(got, want, dtype)
+    assert_close(tops.spgemm_inner(ta, tb, method="reference", device="cpu"),
+                 want, dtype)

@@ -272,6 +272,44 @@ def test_execute_assignments_by_task_index():
                                    rtol=1e-4, atol=1e-4)
 
 
+def test_execute_assignments_casts_float64_like_jax():
+    """float64 numpy operands (``np.random`` gives them) come out float32
+    and equal JAX's, which makes them float32 in ``jnp.asarray``."""
+    pairs, jtasks = suite(5)
+    pairs64 = {i: (a.astype(np.float64), b.astype(np.float64))
+               for i, (a, b) in enumerate(pairs)}
+    jcfg, tcfg = small4(jcm, JD), small4(tcm, TClass)
+    jms = jsched.schedule_many_kernels(jcfg, jtasks)
+    tms = tsched.schedule_many_kernels(tcfg, [twin(w) for w in jtasks])
+    assert canon(tms) == canon(jms)
+    want = jhm.execute_assignments(jms.assignments, pairs64, jcfg,
+                                   interpret=True, block=32)
+    got = thm.execute_assignments(tms.assignments, pairs64, tcfg, block=32,
+                                  device="cpu")
+    assert sorted(got) == sorted(want)
+    for i, out in got.items():
+        assert out.dtype == torch.float32
+        assert np.asarray(want[i]).dtype == np.float32
+        np.testing.assert_allclose(as_np(out), as_np(want[i]), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_hetero_many_matmul_casts_float64_like_jax():
+    pairs, _ = suite(11)
+    pairs64 = [(a.astype(np.float64), b.astype(np.float64))
+               for a, b in pairs]
+    want, jms = jhm.hetero_many_matmul(pairs64, small4(jcm, JD),
+                                       interpret=True, block=32)
+    got, tms = thm.hetero_many_matmul(pairs64, small4(tcm, TClass),
+                                      block=32, device="cpu")
+    assert [a.cls.value for a in tms.assignments] == [
+        a.cls.value for a in jms.assignments]
+    for (a, b), g, w in zip(pairs64, got, want):
+        assert g.dtype == torch.float32 and np.asarray(w).dtype == np.float32
+        np.testing.assert_allclose(as_np(g), as_np(w), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(as_np(g), a @ b, rtol=1e-4, atol=1e-4)
+
+
 def test_executor_rejects_mismatched_operands():
     pairs, jtasks = suite(0)
     tms = tsched.schedule_many_kernels(small4(tcm, TClass),

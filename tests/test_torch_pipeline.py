@@ -255,6 +255,42 @@ def test_hetero_matmul_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def float64_pair(name, seed, max_elems):
+    """A Table I workload's operands, scaled down, as float64 numpy (what
+    ``np.random`` gives): both packages compute in float32 from them."""
+    a, b, dims = twl.synthesize(twl.BY_NAME[name], seed=seed,
+                                max_elems=max_elems)
+    return a.astype(np.float64), b.astype(np.float64), dims
+
+
+def test_execute_schedule_casts_float64_like_jax():
+    """float64 operands come out float32 and equal JAX's (``jnp.asarray``
+    without x64 makes them float32); before, the port kept float64, which
+    no kernel takes on the card."""
+    a, b, dims = float64_pair("speech", 2, 1 << 15)
+    jw, tw = workload_pair("speech", dims)
+    js = jsched.schedule_single_kernel(jdse.aespa_equal4(), jw)
+    ts = tsched.schedule_single_kernel(tdse.aespa_equal4(), tw)
+    want = jhm.execute_schedule(a, b, js, block=64)
+    got = execute_schedule(a, b, ts, block=64, device="cpu")
+    assert np.asarray(want).dtype == np.float32
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), a @ b, **TOL)
+
+
+def test_hetero_matmul_casts_float64_like_jax():
+    a, b, _ = float64_pair("chem97ZtZ", 3, 1 << 16)
+    want, js = jhm.hetero_matmul(a, b, jdse.aespa_equal4(), block=64)
+    got, ts = hetero_matmul(a, b, tdse.aespa_equal4(), block=64,
+                            device="cpu")
+    assert np.asarray(want).dtype == np.float32
+    assert got.dtype == torch.float32
+    assert partitions(ts) == partitions(js)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), a @ b, **TOL)
+
+
 def test_entry_points_default_to_the_card():
     """Without ``device`` an entry point runs on the card, and with no card
     it raises instead of computing on the CPU."""
