@@ -25,15 +25,20 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    id out of range in a middle and in the last fiber, K not a multiple of
    its 32-wide chunk, mirrored SpMM rows not 16-byte aligned, an M tile
    with 37 live k, B fibers dense, ordered and out of order against
-   contiguous and scattered live k, and a far gap in the live k), with the
-   kernel's, the plain version's and ``torch.matmul``'s times (CUDA
-   events, median after warm-up; one timing for a call over 100 ms) beside
-   the least time the card could take. The body "auto" passed over is
-   timed too. Each SpMM, inner, Gustavson and outer call, both bodies,
-   must give the same bits twice and make no host sync (PyTorch's sync
-   debug mode), and a profile gives each redesigned kernel's time without
-   its wrapper's pre-pass (outer reference and sparse, and the chunked
-   kernel of the three reference bodies) at every launch shape. The fiber
+   contiguous and scattered live k, and a far gap in the live k; for the
+   SpMM sparse body M not a multiple of the rows a block holds, a K long
+   enough for the K-window walk, every fiber block empty, live slots
+   shuffled, an id out of range and a small M whose launch splits N; for
+   the GEMM a K not a multiple of its 32-wide step and a grid whose tail
+   wave is split along K), with the kernel's, the plain version's and
+   ``torch.matmul``'s times (CUDA events, median after warm-up; one timing
+   for a call over 100 ms) beside the least time the card could take. The
+   body "auto" passed over is timed too. Each SpMM, inner, Gustavson,
+   outer and GEMM call, both bodies, must give the same bits twice and
+   make no host sync (PyTorch's sync debug mode), and a profile gives each
+   redesigned kernel's time without its wrapper's pre-pass (SpMM sparse,
+   GEMM, outer reference and sparse, and the chunked kernel of the three
+   reference bodies) at every launch shape. The fiber
    scan those bodies run before their rank update is held against its
    plain versions (kinds, chunk starts, live groups).
 3. The single-kernel path: ``schedule_single_kernel(aespa_equal4())`` then
@@ -65,6 +70,7 @@ It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -148,6 +154,8 @@ COUNTERS = (spmm_mod.launches, outer_mod.launches, gemm_mod.launches,
 #: events carry: the time of the kernel alone, without its wrapper's
 #: pre-pass, is taken from a profile of the call.
 KERNEL_NAMES = {
+    "spmm_sparse": "spmm_rows_kernel",
+    "gemm": "gemm_kernel",
     "outer_reference": "outer_reference_kernel",
     "outer_sparse": "outer_merge_kernel",
     "spmm_reference": "chunk_update_kernel",
@@ -261,18 +269,21 @@ def kernel_only_ms(call, kernel_names, tries: int = 3) -> float:
     does not show exactly one is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
+    seen = []
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
-        spans = [e.time_range for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(n in e.name for n in kernel_names)]
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = [e.time_range for e in events
+                 if any(n in e.name for n in kernel_names)]
         if len(spans) == 1:
             return (spans[0].end - spans[0].start) / 1e3
+        seen = [e.name[:60] for e in events]
     raise AssertionError(f"profile: not one kernel of {kernel_names} in "
-                         f"{tries} profiles")
+                         f"{tries} profiles (the last: {seen})")
 
 
 class KernelCase:
@@ -356,7 +367,7 @@ def other_body(name, call, both):
     return (name, call) if both else None
 
 
-def spmm_case(label, ap, bp, bn, method="auto", both=True):
+def spmm_case(label, ap, bp, bn, method="auto", both=True, want_zero=False):
     chosen = spmm_mod.resolve_method(method, ap.shape[1], bp.cap)
     other = "reference" if chosen == "sparse" else "sparse"
     b_dense = ell.ell_to_dense(bp).to(ap.dtype)
@@ -373,7 +384,7 @@ def spmm_case(label, ap, bp, bn, method="auto", both=True):
         other=other_body("spmm_" + other,
                          lambda: spmm_mod.spmm(ap, bp, bn=bn, method=other),
                          both),
-        repeat=True)
+        repeat=True, want_zero=want_zero)
 
 
 def outer_case(label, ap, bp, bm, bn, method="auto", want_zero=False):
@@ -412,7 +423,7 @@ def gemm_case(label, ap, bp, dims=None):
         plain=lambda: gemm_mod.gemm_plain(ap, bp),
         library=lambda: torch.matmul(ap, bp),
         in_bytes=(m * k + k * n) * size, out_bytes=m * n * size,
-        flops=2.0 * m * k * n, dtype=ap.dtype)
+        flops=2.0 * m * k * n, dtype=ap.dtype, repeat=True)
 
 
 def inner_case(label, ap, bp, bm, bn, bk=BLOCK, method="auto", both=True):
@@ -699,6 +710,7 @@ def edge_cases():
                 f"edge {name} shuffled", *shuffled, bm, bn, method=method,
                 plain=gustavson_oracle(*shuffled)))
         cases += chunk_edge_cases(name, dtype, sparse, gen)
+        cases += sparse_gemm_edge_cases(name, dtype, sparse, gen)
     return cases
 
 
@@ -716,21 +728,26 @@ def with_bad_id(e, where):
     return ell.EllMatrix(e.vals, ids, e.lens, e.shape, e.major_axis)
 
 
+def exact_ell(x, axis, dtype, cap=None):
+    """``x`` in ``dtype`` as fibers along ``axis``, at ``cap`` slots or the
+    capacity its fullest fiber needs (at least 1)."""
+    need = int((x != 0).sum(dim=1 - axis).max())
+    return ell.dense_to_ell(x.to(dtype), axis, cap or max(need, 1),
+                            strict=True)
+
+
 def chunk_edge_cases(name, dtype, sparse, gen):
     """Edge cases of the chunked rank-update kernel (the SpMM, inner and
     Gustavson reference bodies): an id out of range in a middle and in the
-    last fiber (the reference body alone: the sparse bodies do not take
-    such operands); K not a multiple of the 32-wide chunk; mirrored SpMM
-    rows not 16-byte aligned; an M tile with 37 live k; B fibers dense,
-    ordered and out of order against contiguous and scattered live k, and
-    a far gap the kernel's binary search jumps; each with both bodies."""
+    last fiber (the reference body alone here: the SpMM sparse body's case
+    is in :func:`sparse_gemm_edge_cases`, and the inner and Gustavson
+    sparse bodies do not take such operands); K not a multiple of the
+    32-wide chunk; mirrored SpMM rows not 16-byte aligned; an M tile with
+    37 live k; B fibers dense, ordered and out of order against contiguous
+    and scattered live k, and a far gap the kernel's binary search jumps;
+    each with both bodies."""
     cases = []
-
-    def ells(x, axis, cap=None):
-        need = int((x != 0).sum(dim=1 - axis).max())
-        return ell.dense_to_ell(x.to(dtype), axis, cap or max(need, 1),
-                                strict=True)
-
+    ells = functools.partial(exact_ell, dtype=dtype)
     a = sparse(200, 300, 1.0).to(dtype)
     b = sparse(300, 256, 0.3)
     for where in ("middle", "last"):
@@ -766,7 +783,7 @@ def chunk_edge_cases(name, dtype, sparse, gen):
         bm_ = sparse(k, 150, 1.0).to(dtype)
         ap, bp, bn = ops.spmm_mirror_operands(ells(am, 0), bm_, bm=BLOCK,
                                               bn=BLOCK)
-        if spmm_mod.row_granule(ap) * ap.element_size() >= 16:
+        if _build.row_granule(ap) * ap.element_size() >= 16:
             raise AssertionError("edge case: mirrored rows are aligned")
         cases.append(spmm_case(f"edge {name} mirror rows of {k}", ap, bp, bn,
                                "reference"))
@@ -833,6 +850,75 @@ def chunk_edge_cases(name, dtype, sparse, gen):
                 ells(a2, 1), ells(b2, 1), bm=BLOCK, bn=BLOCK)
             cases.append(gustavson_case(f"edge {name} far gap", ap, bp, bm,
                                         bn, method="reference"))
+    return cases
+
+
+def sparse_gemm_edge_cases(name, dtype, sparse, gen):
+    """Edge cases of the SpMM sparse body and the GEMM, each against its
+    plain version. SpMM sparse: M not a multiple of the rows a block
+    holds, a K that takes the K-window walk, every fiber block empty (all
+    zeros out), live slots shuffled, an id out of range in a middle and in
+    the last fiber, and a small M whose launch needs the N split; each plan
+    is checked to take the path it is meant for. GEMM: K not a multiple of
+    the 32-wide K step, and a grid whose tail wave is split along K."""
+    cases = []
+    code = _build.dtype_code("edge case", dtype)
+    elem = torch.empty((), dtype=dtype).element_size()
+
+    ells = functools.partial(exact_ell, axis=1, dtype=dtype)
+
+    def plan_of(m, k, n):
+        return spmm_mod.spmm_sparse_plan(
+            m, k, n, elem, lambda rows, smem: spmm_mod.block_slots(
+                torch.device("cuda", 0), code, rows, smem))
+
+    # M = 203 straight into the kernel: 16 rows a block, the last with 11.
+    a = sparse(203, 300, 1.0).to(dtype)
+    b_ell = ells(sparse(300, 384, 0.05))
+    if 203 % plan_of(203, 300, 384).rows == 0:
+        raise AssertionError("edge case: M a multiple of the block's rows")
+    cases.append(spmm_case(f"edge {name} sparse M 203", a, b_ell, 128,
+                           "sparse"))
+    # Live slots out of order, PAD slots still last.
+    cases.append(spmm_case(f"edge {name} sparse shuffled", a,
+                           shuffle_live_slots(b_ell, gen), 128, "sparse"))
+    # An id past K in a middle and in the last fiber: dropped.
+    for where in ("middle", "last"):
+        cases.append(spmm_case(
+            f"edge {name} sparse id out of range, {where} fiber", a,
+            with_bad_id(b_ell, where), 128, "sparse", both=False))
+    # Every fiber block empty: the output is all zero.
+    cases.append(spmm_case(f"edge {name} sparse all blocks empty", a,
+                           ells(torch.zeros(300, 256, device="cuda"), cap=4),
+                           128, "sparse", want_zero=True))
+    # K = 50000: no row of A fits the block's shared memory whole.
+    k = 50000
+    if plan_of(130, k, 384).window >= k:
+        raise AssertionError("edge case: K = 50000 fits without windows")
+    cases.append(spmm_case(f"edge {name} sparse K windows",
+                           sparse(130, k, 1.0).to(dtype),
+                           ells(sparse(k, 384, 0.002)), 128, "sparse",
+                           both=False))
+    # M = 40 against 4096 fibers: three row blocks, the fibers split.
+    if plan_of(40, 300, 4096).n_split < 2:
+        raise AssertionError("edge case: the small-M launch is not split")
+    cases.append(spmm_case(f"edge {name} sparse N split",
+                           sparse(40, 300, 1.0).to(dtype),
+                           ells(sparse(300, 4096, 0.05)), 128, "sparse"))
+    # GEMM: K = 312 (rows 16-byte aligned, 24 past the last full K step).
+    a = sparse(256, 312, 1.0).to(dtype)
+    b = sparse(312, 256, 1.0).to(dtype)
+    cases.append(gemm_case(f"edge {name} K 312", a, b))
+    # GEMM: a grid of slots + 8 tiles, whose last 8 run split along K.
+    slots = gemm_mod.block_slots(torch.device("cuda", 0), code)
+    m = gemm_mod.GEMM_TILE_M * (-(-(slots + 8) // 4))
+    plan = gemm_mod.gemm_plan(m, 1024, 4 * gemm_mod.GEMM_TILE_N, slots)
+    if plan.splits < 2 or not plan.tail:
+        raise AssertionError(f"edge case: no split tail ({plan})")
+    a = sparse(m, 1024, 1.0).to(dtype)
+    b = sparse(1024, 4 * gemm_mod.GEMM_TILE_N, 1.0).to(dtype)
+    cases.append(gemm_case(f"edge {name} tail of {plan.tail} tiles in "
+                           f"{plan.splits} pieces", a, b))
     return cases
 
 

@@ -132,3 +132,16 @@ def dtype_code(what: str, *dtypes: torch.dtype) -> int:
         raise ValueError(f"{what}: kernels take float32 or bfloat16 with one "
                          f"dtype for every value operand, got {dtypes}")
     return DTYPE_CODES[dtypes[0]]
+
+
+def row_granule(t: torch.Tensor) -> int:
+    """Elements per ``cp.async`` copy of the rows of a row-major 2-D
+    ``t``: the widest of 16, 8 and 4 bytes that every row start is aligned
+    to; 1 for a bf16 row of odd length, which a kernel then copies element
+    by element with plain loads."""
+    size = t.element_size()
+    row = t.shape[1] * size
+    for nbytes in (16, 8, 4):
+        if nbytes >= size and row % nbytes == 0 and t.data_ptr() % nbytes == 0:
+            return nbytes // size
+    return 1

@@ -115,27 +115,6 @@ struct ChunkArgs {
   int M, K, N;
 };
 
-// ------------------------------------------------------------ cp.async
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // ---------------------------------------------------------------- chunks
 // One chunk of the walk, as every lane of a warp holds it: lane j's k
 // (INT_MAX past the chunk's kn entries), and the chunk's first and last k.

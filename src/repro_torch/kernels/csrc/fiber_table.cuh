@@ -1,7 +1,7 @@
 // Scatters of fibers into a dense f32 table for the sparse bodies: of
-// column fibers into table columns, shared by SpMM (spmm.cu) and the
-// inner-product SpGEMM (spgemm_inner.cu), and of fibers into table rows,
-// for the Gustavson SpGEMM (spgemm_gustavson.cu; at the end of this file).
+// column fibers into table columns, for the inner-product SpGEMM
+// (spgemm_inner.cu), and of fibers into table rows, for the Gustavson
+// SpGEMM (spgemm_gustavson.cu; at the end of this file).
 //
 // N fibers (ids -> K, capacity cap, PAD_ID = -1 padding) land in a (K, N)
 // table: entry c of fiber f goes to table[ids[f, c], f]. The table must be

@@ -8,10 +8,10 @@
 // Sparse body (replaces _inner_sparse_kernel). The TPU builds B's dense
 // (K, bn) table in VMEM at the first M step of each N block and reuses it
 // for the later M steps; that needs the grid to run in order on one core.
-// Here the scatter of fiber_table.cuh (shared with SpMM) fills one (K, N)
-// f32 table in device memory, zeroed by the wrapper and skipping empty B
-// blocks, before the gather-contract kernel of fiber_contract.cuh (shared
-// with the Gustavson body) starts, with A's M row fibers driving. It gives
+// Here the scatter of fiber_table.cuh fills one (K, N) f32 table in
+// device memory, zeroed by the wrapper and skipping empty B blocks, before
+// the gather-contract kernel of fiber_contract.cuh (shared with the
+// Gustavson body) starts, with A's M row fibers driving. It gives
 // each block 32 A rows and a run of 128 consecutive output columns; the
 // trip count is the rows' live chunk bound (acnt of block_chunk_counts(a,
 // bm, fc), as on the TPU); a block whose B fiber blocks are all empty

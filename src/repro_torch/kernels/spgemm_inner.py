@@ -6,8 +6,8 @@ Two bodies behind one entry point, as in the JAX package, each a CUDA
 kernel in ``csrc/spgemm_inner.cu``:
 
 ``method="sparse"`` — scatters B's live fibers once into a dense ``(K, N)``
-f32 table in device memory (a kernel of its own, shared with SpMM: the
-TPU's build-at-the-first-M-step trick races on CUDA), then gathers table
+f32 table in device memory (a kernel of its own: the TPU's
+build-at-the-first-M-step trick races on CUDA), then gathers table
 rows at A's coordinates and contracts them over A's live capacity chunks;
 fiber blocks either operand proves empty write zeros.
 
