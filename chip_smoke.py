@@ -29,16 +29,23 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    SpMM sparse body M not a multiple of the rows a block holds, a K long
    enough for the K-window walk, every fiber block empty, live slots
    shuffled, an id out of range and a small M whose launch splits N; for
-   the GEMM a K not a multiple of its 32-wide step and a grid whose tail
-   wave is split along K), with the kernel's, the plain version's and
+   the inner sparse body B's fibers dense, ordered and shuffled, a B fiber
+   at capacity, an empty row block, a K-window walk, few A rows against
+   many B fibers and the reverse, and ragged M and N; for the Gustavson
+   sparse body A's fibers dense, ordered and out of order, M over one
+   1024-wide chunk, an all-zero A, B's slots shuffled and with a PAD slot
+   inside the live range, and ragged M, K and N; for the GEMM a K not a
+   multiple of its 32-wide step and a grid whose tail wave is split along
+   K), with the kernel's, the plain version's and
    ``torch.matmul``'s times (CUDA events, median after warm-up; one timing
    for a call over 100 ms) beside the least time the card could take. The
    body "auto" passed over is timed too. Each SpMM, inner, Gustavson,
    outer and GEMM call, both bodies, must give the same bits twice and
    make no host sync (PyTorch's sync debug mode), and a profile gives each
-   redesigned kernel's time without its wrapper's pre-pass (SpMM sparse,
-   GEMM, outer reference and sparse, and the chunked kernel of the three
-   reference bodies) at every launch shape. The fiber
+   kernel's time without its wrapper's pre-pass (the row walk of the SpMM
+   and inner sparse bodies, the row merge of the outer and Gustavson
+   sparse bodies, the outer reference body, the chunked kernel of the
+   three reference bodies and the GEMM) at every launch shape. The fiber
    scan those bodies run before their rank update is held against its
    plain versions (kinds, chunk starts, live groups).
 3. The single-kernel path: ``schedule_single_kernel(aespa_equal4())`` then
@@ -150,14 +157,16 @@ REPLACES = {
 }
 COUNTERS = (spmm_mod.launches, outer_mod.launches, gemm_mod.launches,
             inner_mod.launches, gust_mod.launches)
-#: The kernel each redesigned body launches, by the name its profile
-#: events carry: the time of the kernel alone, without its wrapper's
-#: pre-pass, is taken from a profile of the call.
+#: The kernel each body launches, by the name its profile events carry:
+#: the time of the kernel alone, without its wrapper's pre-pass, is taken
+#: from a profile of the call.
 KERNEL_NAMES = {
-    "spmm_sparse": "spmm_rows_kernel",
+    "spmm_sparse": "row_walk_kernel",
+    "inner_sparse": "row_walk_kernel",
     "gemm": "gemm_kernel",
     "outer_reference": "outer_reference_kernel",
-    "outer_sparse": "outer_merge_kernel",
+    "outer_sparse": "row_merge_kernel",
+    "gustavson_sparse": "row_merge_kernel",
     "spmm_reference": "chunk_update_kernel",
     "inner_reference": "chunk_update_kernel",
     "gustavson_reference": "chunk_update_kernel",
@@ -711,6 +720,8 @@ def edge_cases():
                 plain=gustavson_oracle(*shuffled)))
         cases += chunk_edge_cases(name, dtype, sparse, gen)
         cases += sparse_gemm_edge_cases(name, dtype, sparse, gen)
+        cases += inner_sparse_edge_cases(name, dtype, sparse, gen)
+        cases += gustavson_sparse_edge_cases(name, dtype, sparse, gen)
     return cases
 
 
@@ -919,6 +930,134 @@ def sparse_gemm_edge_cases(name, dtype, sparse, gen):
     b = sparse(1024, 4 * gemm_mod.GEMM_TILE_N, 1.0).to(dtype)
     cases.append(gemm_case(f"edge {name} tail of {plan.tail} tiles in "
                            f"{plan.splits} pieces", a, b))
+    return cases
+
+
+def pad_inside(e):
+    """``e`` with a PAD slot inside each fiber's live range: the live slot
+    at half the fiber's live count swapped with the first PAD slot (a
+    fiber with fewer than two live slots, or at capacity, keeps its
+    slots); ``lens`` stays the live count."""
+    ids, vals = e.ids.clone(), e.vals.clone()
+    live = (ids >= 0).sum(dim=1)
+    rows = torch.nonzero((live >= 2) & (live < e.cap)).flatten()
+    if not rows.numel():
+        raise AssertionError("edge case: no fiber to put a PAD slot inside")
+    mid, end = live[rows] // 2, live[rows]
+    for t in (ids, vals):
+        t[rows, mid], t[rows, end] = t[rows, end].clone(), t[rows, mid].clone()
+    return ell.EllMatrix(vals, ids, e.lens, e.shape, e.major_axis)
+
+
+def inner_sparse_edge_cases(name, dtype, sparse, gen):
+    """Edge cases of the inner sparse body (the row walk with B's fibers
+    expanded into its rows), each with the sparse body forced and held
+    against the plain version: B's fibers dense, ordered and with shuffled
+    live slots; a B fiber at exactly its capacity; every B fiber of a row
+    block empty; a K long enough for the K-window walk; few A rows against
+    many B fibers and the reverse (no fiber split, then a split); M and N
+    not multiples of the blocks. Each plan is checked to take the path it
+    is meant for."""
+    cases = []
+    elem = torch.empty((), dtype=dtype).element_size()
+    ells = functools.partial(exact_ell, dtype=dtype)
+    sms = _build.sm_count(torch.device("cuda", 0))
+
+    def plan_of(m, k, n):
+        return inner_mod.inner_sparse_plan(m, k, n, elem, sms)
+
+    def case(label, a, b, bm=BLOCK):
+        return inner_case(f"edge {name} sparse {label}", ells(a, 0),
+                          ells(b, 1), bm, BLOCK, method="sparse")
+
+    a = sparse(256, 300, 0.02)
+    for kind, density in (("dense", 1.0), ("ordered", 0.3)):
+        b = sparse(300, 256, density)
+        b[100:, 9] = 0                    # a fiber cut short
+        cases.append(case(f"B {kind}", a, b))
+        if kind == "ordered":
+            ap, bp = ells(a, 0), shuffle_live_slots(ells(b, 1), gen)
+            cases.append(inner_case(f"edge {name} sparse B shuffled", ap, bp,
+                                    BLOCK, BLOCK, method="sparse"))
+    # B's fiber 3 at exactly its capacity of 32, the fullest.
+    b = sparse(300, 256, 0.05)
+    b[:, 3] = 0
+    b[torch.arange(0, 300, 9)[:32], 3] = 1.25
+    bp = ells(b, 1, cap=32)
+    if int(bp.lens[3]) != bp.cap:
+        raise AssertionError("inner edge case: B's fiber 3 not at cap")
+    cases.append(inner_case(f"edge {name} sparse B fiber at cap",
+                            ells(a, 0), bp, BLOCK, BLOCK, method="sparse"))
+    # B's fibers 0..63 empty: every row block there holds zeros.
+    b = sparse(300, 256, 0.3)
+    b[:, :64] = 0
+    cases.append(case("B rows 0..63 empty", a, b))
+    # A K window walk: no fiber of B fits a block's shared memory whole.
+    k = 30000 if elem == 4 else 50000
+    if plan_of(256, k, 130).window >= k:
+        raise AssertionError(f"inner edge case: K = {k} fits without "
+                             "windows")
+    cases.append(case(f"K {k} windows", sparse(256, k, 0.002),
+                      sparse(k, 130, 0.3)))
+    # Few A rows against many B fibers: row blocks fill the card, no split;
+    # the reverse: few row blocks, A's fibers split.
+    if plan_of(40, 300, 4096).n_split != 1:
+        raise AssertionError("inner edge case: 4096 B fibers split")
+    cases.append(case("40 A rows x 4096 B fibers", sparse(40, 300, 0.05),
+                      sparse(300, 4096, 0.3), bm=8))
+    if plan_of(4096, 300, 40).n_split < 2:
+        raise AssertionError("inner edge case: 4096 A rows not split")
+    cases.append(case("4096 A rows x 40 B fibers", sparse(4096, 300, 0.05),
+                      sparse(300, 40, 0.3)))
+    # M = 203 and N = 130 straight into the kernel (bm shrinks to 1; the
+    # last row block ragged).
+    cases.append(case("ragged 203x300x130", sparse(203, 300, 0.03),
+                      sparse(300, 130, 0.3)))
+    return cases
+
+
+def gustavson_sparse_edge_cases(name, dtype, sparse, gen):
+    """Edge cases of the Gustavson sparse body (the row merge with B's
+    fibers read in place), each with the sparse body forced and held
+    against the plain version: A's fibers dense, ordered and out of order;
+    M > 1024 with a ragged last M chunk; an all-zero A (the output must be
+    all zero); B's fibers with shuffled slots and with a PAD slot inside
+    the live range; ragged M, K and N."""
+    cases = []
+    ells = functools.partial(exact_ell, dtype=dtype)
+
+    def case(label, ap, bp, want_zero=False):
+        c = gustavson_case(f"edge {name} sparse {label}", ap, bp, BLOCK,
+                           BLOCK, method="sparse")
+        c.want_zero = want_zero
+        return c
+
+    b = sparse(300, 256, 0.05)
+    for kind, density in (("dense", 1.0), ("ordered", 0.3),
+                          ("out of order", 0.3)):
+        a = sparse(384, 300, density)
+        a[100:, 9] = 0                    # a fiber cut short
+        ap = ells(a, 1)
+        if kind == "out of order":
+            ap = shuffle_live_slots(ap, gen)
+        cases.append(case(f"A {kind}", ap, ells(b, 1)))
+    # M = 2100: two whole M chunks of 1024 and one of 52.
+    cases.append(case("M 2100", ells(sparse(2100, 300, 0.02), 1),
+                      ells(b, 1)))
+    # An all-zero A.
+    zero_a = ell.dense_to_ell(torch.zeros(384, 300, dtype=dtype,
+                                          device="cuda"), 1, 8)
+    cases.append(case("all-zero A", zero_a, ells(b, 1), want_zero=True))
+    # B's live slots shuffled, then a PAD slot inside each live range.
+    ap = ells(sparse(384, 300, 0.1), 1)
+    bp = shuffle_live_slots(ells(b, 1), gen)
+    cases.append(case("B shuffled", ap, bp))
+    cases.append(case("B PAD inside", ap, pad_inside(ells(b, 1))))
+    cases.append(case("B shuffled, PAD inside", ap, pad_inside(bp)))
+    # Ragged M, K and N straight into the kernel, M over one chunk.
+    cases.append(case("ragged 1100x261x133",
+                      ells(sparse(1100, 261, 0.05), 1),
+                      ells(sparse(261, 133, 0.05), 1)))
     return cases
 
 
@@ -1156,8 +1295,8 @@ def main() -> int:
             if {case.body, other} & KERNEL_NAMES.keys():
                 redesigned.append((case, rows[-1]))
         torch.cuda.empty_cache()
-    # The redesigned kernels alone, without their wrappers' pre-passes:
-    # each body that has one, chosen or passed over, at every launch shape.
+    # The kernels alone, without their wrappers' pre-passes: each body,
+    # chosen or passed over, at every launch shape.
     for case, row in redesigned:
         if case.body in KERNEL_NAMES:
             row["kernel_only_ms"] = kernel_only_ms(

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_sms: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -96,6 +97,14 @@ def load(stem: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded[stem] = lib
     return lib
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (asked once per device)."""
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device.index]
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -8,23 +8,27 @@
 //
 // Sparse body (replaces _gustavson_sparse_kernel). The TPU builds A's dense
 // (K, bm) table for an M window in VMEM at the first N step and reuses it
-// on the later N steps; that needs the grid to run in order on one core
-// (the hazard of every sparse body). Here a kernel of its own fills one
-// zeroed (K, M) f32 table in device memory first: A's fiber k is table row
-// k, a row scatter with one warp per fiber and no atomics
-// (fiber_table.cuh). Then B's fibers drive the gather-contract of
-// fiber_contract.cuh, as A's rows drive it in the inner body: for every
-// live entry (k, b) of fiber n, row n of the (N, M) product gains
-// b·table[k, :], over B's live chunks (block_chunk_counts(b, bn, fc)). The
-// product is O's transpose: each block stages its tile in shared memory
-// and stores it transposed into O, so no (N, M) buffer is written and read
-// again (at gnmt's width that buffer alone is 240 MB). Blocks whose M
-// columns all lie in windows that block_window_nnz(a, bm) proves empty
-// write zeros without reading B.
-// Bound: the data needs 2·Σk nnzA(k)·nnzB(k) operations, but the gather
-// does 2·nnz(B)·M (the table is dense in M); each FMA needs a table load,
-// mostly from L2, so load bandwidth bounds it; the scatter reads A's ELL
-// once and writes each live entry once into the table.
+// on the later N steps, and B's fibers drive a gather-contract over it:
+// 2·nnz(B)·M operations where the data needs 2·Σk nnzA(k)·nnzB(k). Here no
+// table exists: the body is the outer product's row merge (row_merge.cuh)
+// on Oᵀ = Bᵀ·Aᵀ.
+// - A warp owns one row of Oᵀ, which is B's fiber n, and an M chunk of 1024
+//   f32 accumulators in shared memory. It walks the fiber's slots in
+//   place, in slot order (FiberSlots: 32 slots a load, the live ones taken
+//   in order; PAD and ids outside [0, K) skipped), with no sort: the outer
+//   body sorts only because its rows are not fibers.
+// - For each entry (k, b) it adds b·a over A's fiber k's run in the M
+//   chunk: no search for a dense fiber, the warp-wide binary search for an
+//   ordered one, every id tested for one out of order (the kinds from
+//   launch_fiber_kind's scan of A's ids).
+// - The kernel stores Oᵀ (N, M) row by row, coalesced; the wrapper returns
+//   the (M, N) transposed view.
+// - No float atomics and no host sync: within one entry every column gains
+//   at most one add, and a row is one warp's, so two runs give the same
+//   bits.
+// Bound: the work goes with the (a, b) pairs plus one write of the output;
+// at Table I's Gustavson launch (citeseer, 0.4 M pairs) the output write
+// (49 MB) bounds it.
 //
 // Reference body (replaces _gustavson_reference_kernel). The TPU expands
 // B and A per (N, M, K block) and adds their product, every K block. Here
@@ -42,53 +46,32 @@
 #include <type_traits>
 
 #include "chunk_update.cuh"
-#include "fiber_contract.cuh"
-#include "fiber_table.cuh"
-
-namespace rt {
-
-template <typename T>
-int gustavson_sparse(const T* a_vals, const int* a_ids, int cap_a,
-                     const int* a_win, int bm, const T* b_vals,
-                     const int* b_ids, int cap_b, const int* b_chunks, int bn,
-                     int fc, float* table, T* out, int M, int K, int N,
-                     cudaStream_t stream) {
-  const cudaError_t err =
-      launch_fiber_row_scatter<T>(a_vals, a_ids, table, K, M, cap_a, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_gather_contract<T, true>(
-      b_vals, b_ids, cap_b, b_chunks, bn, fc, table, a_win, bm, out, N, M,
-      stream);
-}
-
-}  // namespace rt
+#include "row_merge.cuh"
 
 // ------------------------------------------------------------- C entries
 // Pointers arrive as void* (ctypes c_void_p); dtype is rt::kF32 or
 // rt::kBF16 and applies to both operands' values and the output. Each
 // returns cudaGetLastError() after its launches.
+
+// gustavson_sparse_launch: B's N fibers (b_vals, b_ids; cap_b slots, ids
+// -> K) are the rows of Oᵀ, A's K fibers (a_vals, a_ids; cap_a slots, ids
+// -> M) are merged, their kinds into a_kind (K ints of scratch); out is Oᵀ
+// (N, M).
 extern "C" int gustavson_sparse_launch(
-    const void* a_vals, const void* a_ids, int cap_a, const void* a_win,
-    int bm, const void* b_vals, const void* b_ids, int cap_b,
-    const void* b_chunks, int bn, int fc, void* table, void* out, int M,
+    const void* a_vals, const void* a_ids, void* a_kind, int cap_a,
+    const void* b_vals, const void* b_ids, int cap_b, void* out, int M,
     int K, int N, int dtype, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int* ai = static_cast<const int*>(a_ids);
-  const int* aw = static_cast<const int*>(a_win);
-  const int* bi = static_cast<const int*>(b_ids);
-  const int* bc = static_cast<const int*>(b_chunks);
-  float* t = static_cast<float*>(table);
-  if (dtype == rt::kF32)
-    return rt::gustavson_sparse<float>(
-        static_cast<const float*>(a_vals), ai, cap_a, aw, bm,
-        static_cast<const float*>(b_vals), bi, cap_b, bc, bn, fc, t,
-        static_cast<float*>(out), M, K, N, s);
-  if (dtype == rt::kBF16)
-    return rt::gustavson_sparse<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(a_vals), ai, cap_a, aw, bm,
-        static_cast<const __nv_bfloat16*>(b_vals), bi, cap_b, bc, bn, fc, t,
-        static_cast<__nv_bfloat16*>(out), M, K, N, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != rt::kF32 && dtype != rt::kBF16)
+    return (int)cudaErrorInvalidValue;
+  return rt::dtype_dispatch(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    const rt::FiberSlots<T> rows{static_cast<const int*>(b_ids),
+                                 static_cast<const T*>(b_vals), cap_b, K};
+    return rt::launch_row_merge<T>(
+        rows, static_cast<const T*>(a_vals), static_cast<const int*>(a_ids),
+        static_cast<int*>(a_kind), cap_a, static_cast<T*>(out), N, K, M,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 // gustavson_reference_launch scans A (fiber kinds, into a_kind) and B

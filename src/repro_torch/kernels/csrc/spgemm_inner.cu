@@ -7,19 +7,33 @@
 //
 // Sparse body (replaces _inner_sparse_kernel). The TPU builds B's dense
 // (K, bn) table in VMEM at the first M step of each N block and reuses it
-// for the later M steps; that needs the grid to run in order on one core.
-// Here the scatter of fiber_table.cuh fills one (K, N) f32 table in
-// device memory, zeroed by the wrapper and skipping empty B blocks, before
-// the gather-contract kernel of fiber_contract.cuh (shared with the
-// Gustavson body) starts, with A's M row fibers driving. It gives
-// each block 32 A rows and a run of 128 consecutive output columns; the
-// trip count is the rows' live chunk bound (acnt of block_chunk_counts(a,
-// bm, fc), as on the TPU); a block whose B fiber blocks are all empty
-// writes zeros without reading A.
-// Bound: the data needs 2·Σk nnzA(k)·nnzB(k) operations, but the gather
-// does 2·nnz(A)·N (the table is dense in N); each FMA needs a table load,
-// mostly from L2, so load bandwidth bounds it; the scatter moves B's ELL
-// and the table once.
+// for the later M steps, then gathers table rows at A's ids and contracts
+// them over A's live capacity chunks. Here no table exists: the body is
+// the SpMM sparse body's row walk (row_walk.cuh) on the mirrored product
+// Oᵀ = Bᵀ·Aᵀ, with B's fibers as the rows (RowLoad::kFibers) and A's row
+// fibers as the walked fibers.
+// - A block owns 1-16 of B's fibers and expands them in shared memory,
+//   k-major: it zeroes the rows, then writes each slot's value at its id
+//   (ids are unique, so no atomics; PAD and ids outside [0, K) dropped).
+//   Every slot of B is read once, coalesced, four slots a load where the
+//   capacity is a multiple of four. A fiber too long for the block's 96 KB
+//   (K·elem > 96 KB) is expanded one K window at a time, each window
+//   reading the fiber's slots again.
+// - The threads walk A's row fibers (they are Aᵀ's column fibers, ids ->
+//   K), copied slot-major by the transpose pre-pass with the TPU body's
+//   live bounds (block_chunk_counts(a, bm, fc) · fc, from A's lengths): a
+//   thread takes 16 / rows fibers in step and adds b[n, id] · val into f32
+//   sums for its block's rows.
+// - The kernel stores Oᵀ (N, M) row by row, consecutive threads on
+//   consecutive m; the wrapper returns the (M, N) transposed view.
+// - A fiber block of A with no live entry walks nothing and gives zeros;
+//   every output is one thread's sum in slot order: no atomics, the same
+//   bits twice, nothing read on the host.
+// Bound: B's ELL read once and O written once (bytes) at Table I's
+// launches, where B is dense (bibd_81_3, m3plates, chem97ZtZ, speech) or
+// A's fibers short (citeseer); where A's fibers are long (speech) each FMA
+// reads its own b[n, id] from shared memory, so shared-memory bandwidth
+// limits the walk, as in SpMM's.
 //
 // Reference body (replaces _inner_reference_kernel). The TPU skips a
 // (tile, K step) unless both tile_occupancy counts are > 0, then expands
@@ -38,55 +52,50 @@
 #include <type_traits>
 
 #include "chunk_update.cuh"
-#include "fiber_contract.cuh"
-#include "fiber_table.cuh"
-
-namespace rt {
-
-template <typename T>
-int inner_sparse(const T* a_vals, const int* a_ids, int cap_a,
-                 const int* a_chunks, int bm, int fc, const T* b_vals,
-                 const int* b_ids, int cap_b, const int* b_counts, int bn,
-                 float* table, T* out, int M, int K, int N,
-                 cudaStream_t stream) {
-  const cudaError_t err = launch_fiber_table_scatter<T>(
-      b_vals, b_ids, b_counts, table, K, N, cap_b, bn, 1, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_gather_contract<T, false>(
-      a_vals, a_ids, cap_a, a_chunks, bm, fc, table, b_counts, bn, out, M, N,
-      stream);
-}
-
-}  // namespace rt
+#include "row_walk.cuh"
 
 // ------------------------------------------------------------- C entries
 // Pointers arrive as void* (ctypes c_void_p); dtype is rt::kF32 or
 // rt::kBF16 and applies to both operands' values and the output. Each
 // returns cudaGetLastError() after its launches.
-extern "C" int inner_sparse_launch(const void* a_vals, const void* a_ids,
-                                   int cap_a, const void* a_chunks, int bm,
-                                   int fc, const void* b_vals,
-                                   const void* b_ids, int cap_b,
-                                   const void* b_counts, int bn, void* table,
-                                   void* out, int M, int K, int N, int dtype,
-                                   void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int* ai = static_cast<const int*>(a_ids);
-  const int* ac = static_cast<const int*>(a_chunks);
-  const int* bi = static_cast<const int*>(b_ids);
-  const int* bc = static_cast<const int*>(b_counts);
-  float* t = static_cast<float*>(table);
-  if (dtype == rt::kF32)
-    return rt::inner_sparse<float>(
-        static_cast<const float*>(a_vals), ai, cap_a, ac, bm, fc,
-        static_cast<const float*>(b_vals), bi, cap_b, bc, bn, t,
-        static_cast<float*>(out), M, K, N, s);
-  if (dtype == rt::kBF16)
-    return rt::inner_sparse<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(a_vals), ai, cap_a, ac, bm, fc,
-        static_cast<const __nv_bfloat16*>(b_vals), bi, cap_b, bc, bn, t,
-        static_cast<__nv_bfloat16*>(out), M, K, N, s);
-  return (int)cudaErrorInvalidValue;
+
+// inner_sparse_launch: A's M row fibers (a_vals, a_ids, a_lens; cap_a
+// slots, live bounds from blocks of bm and chunks of fc) are walked,
+// B's N column fibers (b_vals, b_ids; cap_b slots, b_vec slots a load)
+// are the rows; ids_t and vals_t are (cap_a, M) and ends (M,) scratch the
+// pre-pass fills; out is Oᵀ (N, M); rows, window, split_w and n_split are
+// spmm.py's spmm_sparse_plan of the mirrored product.
+extern "C" int inner_sparse_launch(
+    const void* a_vals, const void* a_ids, const void* a_lens, int cap_a,
+    int bm, int fc, const void* b_vals, const void* b_ids, int cap_b,
+    int b_vec, void* ids_t, void* vals_t, void* ends, void* out, int M,
+    int K, int N, int rows, int window, int split_w, int n_split, int dtype,
+    void* stream) {
+  if (dtype != rt::kF32 && dtype != rt::kBF16)
+    return (int)cudaErrorInvalidValue;
+  return rt::dtype_dispatch(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    rt::SparseArgs<T> p{};
+    p.row_ids = static_cast<const int*>(b_ids);
+    p.row_vals = static_cast<const T*>(b_vals);
+    p.row_cap = cap_b;
+    p.row_vec = b_vec;
+    p.ids_t = static_cast<const int*>(ids_t);
+    p.vals_t = static_cast<const T*>(vals_t);
+    p.ends = static_cast<const int*>(ends);
+    p.out = static_cast<T*>(out);
+    p.M = N;  // the rows: B's fibers
+    p.K = K;
+    p.N = M;  // the walked fibers: A's
+    p.rows = rows;
+    p.window = window;
+    p.split_w = split_w;
+    p.n_split = n_split;
+    return rt::launch_row_walk<T, rt::RowLoad::kFibers>(
+        p, static_cast<const int*>(a_ids), static_cast<const T*>(a_vals),
+        static_cast<const int*>(a_lens), cap_a, bm, fc,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 // inner_reference_launch scans B (fiber kinds and chunk starts, into

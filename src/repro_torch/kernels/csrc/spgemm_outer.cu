@@ -25,15 +25,20 @@
 // Sparse body (replaces _outer_sparse_kernel). OuterSPACE's multiply and
 // merge without the TPU's dense (M, K) and (N, K) tables: the wrapper sorts
 // A's slots into row order (a stable sort by id, so each row's entries
-// ascend in k; the kernel reads A through the sort's permutation), and a
-// block owns 8 output rows (a warp each) and 1024 columns held as f32
-// accumulators in shared memory. For each entry (k, v)
-// of its row, in order, a warp adds v·B[k, n] over B fiber k's slots in the
-// column chunk (a binary-searched run, a run known without a search for a
-// dense fiber, or a tested scan of a fiber out of order). A fiber's ids are unique and a row is one warp's, so no add needs
-// an atomic and two runs give the same bits. The work is the pair count
-// plus one write of the output.
+// ascend in k), and the row merge of row_merge.cuh reads them through the
+// sort's permutation (SortedSlots): a block owns 8 output rows (a warp
+// each) and 1024 columns held as f32 accumulators in shared memory, and
+// for each entry (k, v) of its row, in order, a warp adds v·B[k, n] over B
+// fiber k's slots in the column chunk (a binary-searched run, a run known
+// without a search for a dense fiber, or a tested scan of a fiber out of
+// order). No add needs an atomic and two runs give the same bits. The
+// work is the pair count plus one write of the output. The Gustavson
+// sparse body (spgemm_gustavson.cu) runs the same kernel with B's fibers
+// read in place as the rows.
+#include <type_traits>
+
 #include "fiber_search.cuh"
+#include "row_merge.cuh"
 
 namespace rt {
 
@@ -166,90 +171,6 @@ int outer_reference(const T* a_vals, const int* a_ids, const int* a_off,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------ sparse body
-constexpr int OS_ROWS = 8, OS_COLS = 1024, OS_THREADS = OS_ROWS * 32;
-constexpr int OS_BATCH = 4;  // entries whose B runs are searched together
-
-// Row m's entries are A's slots order[e] for e in [row_ptr[m],
-// row_ptr[m + 1]), ascending in k: A's slots sorted into row order (slot s
-// holds fiber k = s / cap_a's value a_vals[s]).
-template <typename T>
-__global__ void __launch_bounds__(OS_THREADS) outer_merge_kernel(
-    const int* __restrict__ row_ptr, const long long* __restrict__ order,
-    const T* __restrict__ a_vals, int cap_a, const T* __restrict__ b_vals,
-    const int* __restrict__ b_ids, const int* __restrict__ b_kind, int cap_b,
-    T* __restrict__ out, int M, int N) {
-  __shared__ float acc[OS_ROWS][OS_COLS];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m = blockIdx.x * OS_ROWS + warp;
-  const int n0 = blockIdx.y * OS_COLS, width = min(OS_COLS, N - n0);
-  if (m >= M) return;  // no block-wide barrier below: a row is one warp's
-  float* row = acc[warp];
-  for (int c = lane; c < width; c += 32) row[c] = 0.f;
-  __syncwarp();
-  const int e1 = row_ptr[m + 1];
-  for (int e0 = row_ptr[m]; e0 < e1; e0 += OS_BATCH) {
-    int k[OS_BATCH];
-    float v[OS_BATCH];
-    bool ord[OS_BATCH];
-    const int* fib[2 * OS_BATCH];
-    int x[2 * OS_BATCH], lo[2 * OS_BATCH], hi[2 * OS_BATCH];
-#pragma unroll
-    for (int j = 0; j < OS_BATCH; ++j) {
-      const bool in = e0 + j < e1;
-      const long long slot = in ? order[e0 + j] : 0;
-      k[j] = in ? (int)(slot / cap_a) : -1;
-      v[j] = in ? to_f32(a_vals[slot]) : 0.f;
-      const int kind = in ? b_kind[k[j]] : kUnordered;
-      ord[j] = kind != kUnordered;
-      fib[2 * j] = fib[2 * j + 1] = b_ids + (size_t)max(k[j], 0) * cap_b;
-      x[2 * j] = n0;
-      x[2 * j + 1] = n0 + width;
-      window_ranges(kind, cap_b, n0, n0 + width, lo[2 * j], hi[2 * j],
-                    lo[2 * j + 1], hi[2 * j + 1]);
-    }
-    warp_lower_bounds<2 * OS_BATCH>(fib, x, lo, hi, lane);
-    // Entries in order; within one, every column gains at most one add.
-#pragma unroll
-    for (int j = 0; j < OS_BATCH; ++j) {
-      if (k[j] < 0) continue;
-      const size_t fb = (size_t)k[j] * cap_b;
-      const int* ids = b_ids + fb;
-      const T* vals = b_vals + fb;
-      if (ord[j]) {
-        for (int s = lo[2 * j] + lane; s < lo[2 * j + 1]; s += 32) {
-          const int c = ids[s] - n0;
-          row[c] = fmaf(v[j], to_f32(vals[s]), row[c]);
-        }
-      } else {
-        for (int s = lane; s < cap_b; s += 32) {
-          const unsigned c = (unsigned)(ids[s] - n0);
-          if (c < (unsigned)width) row[c] = fmaf(v[j], to_f32(vals[s]), row[c]);
-        }
-      }
-      __syncwarp();
-    }
-  }
-  T* dst = out + (size_t)m * N + n0;
-  for (int c = lane; c < width; c += 32) dst[c] = from_f32<T>(row[c]);
-}
-
-template <typename T>
-int outer_sparse(const int* row_ptr, const long long* order, const T* a_vals,
-                 int cap_a, const T* b_vals, const int* b_ids, int* b_kind,
-                 int cap_b, T* out, int M, int K, int N,
-                 cudaStream_t stream) {
-  if (M == 0 || N == 0) return (int)cudaSuccess;
-  const cudaError_t err =
-      launch_fiber_kind(b_ids, K, cap_b, N, b_kind, stream);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + OS_ROWS - 1) / OS_ROWS, (N + OS_COLS - 1) / OS_COLS);
-  outer_merge_kernel<T><<<grid, OS_THREADS, 0, stream>>>(
-      row_ptr, order, a_vals, cap_a, b_vals, b_ids, b_kind, cap_b, out, M,
-      N);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace rt
 
 // ------------------------------------------------------------- C entries
@@ -262,22 +183,18 @@ extern "C" int outer_sparse_launch(const void* row_ptr, const void* order,
                                    const void* b_vals, const void* b_ids,
                                    void* b_kind, int cap_b, void* out, int M,
                                    int K, int N, int dtype, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int* rp = static_cast<const int*>(row_ptr);
-  const long long* od = static_cast<const long long*>(order);
-  const int* bi = static_cast<const int*>(b_ids);
-  int* bo = static_cast<int*>(b_kind);
-  if (dtype == rt::kF32)
-    return rt::outer_sparse<float>(
-        rp, od, static_cast<const float*>(a_vals), cap_a,
-        static_cast<const float*>(b_vals), bi, bo, cap_b,
-        static_cast<float*>(out), M, K, N, s);
-  if (dtype == rt::kBF16)
-    return rt::outer_sparse<__nv_bfloat16>(
-        rp, od, static_cast<const __nv_bfloat16*>(a_vals), cap_a,
-        static_cast<const __nv_bfloat16*>(b_vals), bi, bo, cap_b,
-        static_cast<__nv_bfloat16*>(out), M, K, N, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != rt::kF32 && dtype != rt::kBF16)
+    return (int)cudaErrorInvalidValue;
+  return rt::dtype_dispatch(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    const rt::SortedSlots<T> rows{static_cast<const int*>(row_ptr),
+                                  static_cast<const long long*>(order),
+                                  static_cast<const T*>(a_vals), cap_a};
+    return rt::launch_row_merge<T>(
+        rows, static_cast<const T*>(b_vals), static_cast<const int*>(b_ids),
+        static_cast<int*>(b_kind), cap_b, static_cast<T*>(out), M, K, N,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" int outer_reference_launch(

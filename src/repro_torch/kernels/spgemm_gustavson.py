@@ -6,12 +6,17 @@ gives ``(M, N)``.
 Two bodies behind one entry point, as in the JAX package, each a CUDA
 kernel in ``csrc/spgemm_gustavson.cu``:
 
-``method="sparse"`` — scatters A's fibers once into the rows of a dense
-``(K, M)`` f32 table in device memory (a kernel of its own: the TPU's
-build-at-the-first-N-step trick races on CUDA), then B's fibers drive a
-gather-contract over their live capacity chunks (the kernel the inner
-product's sparse body uses, storing its tile transposed); M windows A
-proves empty write zeros.
+``method="sparse"`` (replaces ``_gustavson_sparse_kernel``) — builds no
+table: the outer product's row merge (``csrc/row_merge.cuh``) on ``Oᵀ =
+Bᵀ·Aᵀ``. A warp owns one of B's fibers, a row of ``Oᵀ``, and an M chunk of
+:data:`GUSTAVSON_SPARSE_COLS` f32 accumulators in shared memory; it walks
+the fiber's slots in place, in slot order, and for each entry ``(k, b)``
+adds ``b·A[:, k]`` over A's fiber k's run in the chunk (a binary search
+for an ordered fiber, none for a dense one, every id tested for one out
+of order). The work goes with the ``(a, b)`` pairs plus one write of the
+output; no float atomics, and two runs give the same bits. The kernel
+stores ``Oᵀ`` and the wrapper returns its ``(M, N)`` transposed view
+(:func:`gustavson_sparse_grid` gives the launch's blocks).
 
 ``method="reference"`` — per 128 x 128 output tile, a walk over only the K
 fibers of A that hold an entry in the M tile (``spgemm_outer.live_k_lists``,
@@ -34,13 +39,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.formats.ell import (
-    EllMatrix,
-    block_chunk_counts,
-    block_window_nnz,
-    ell_to_dense,
-    pad_capacity,
-)
+from repro_torch.formats.ell import EllMatrix, ell_to_dense
 from repro_torch.kernels import _build
 from repro_torch.kernels.spgemm_outer import live_k_lists
 from repro_torch.kernels.spmm import (
@@ -49,16 +48,23 @@ from repro_torch.kernels.spmm import (
     fit_block,
 )
 
-#: Capacity-chunk width of the gather contraction over B's column fibers.
+#: Capacity-chunk width of the TPU body's live-chunk trip count over B's
+#: fibers, passed as ``fc``; the sparse body here reads every slot.
 GUSTAVSON_FIBER_CHUNK = 16
+
+#: The sparse kernel's rows of ``Oᵀ`` a block (one a warp) and the M chunk
+#: a warp holds in shared memory (``OS_ROWS``, ``OS_COLS`` in
+#: ``csrc/row_merge.cuh``).
+GUSTAVSON_SPARSE_ROWS = 8
+GUSTAVSON_SPARSE_COLS = 1024
 
 #: Kernel launches per body since the counts were last reset.
 launches = {"gustavson_sparse": 0, "gustavson_reference": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gustavson_sparse_launch": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _I,
-                                _P, _P, _I, _I, _I, _I, _P],
+    "gustavson_sparse_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I,
+                                _I, _P],
     "gustavson_reference_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
                                    _P, _P, _I, _P, _I, _I, _I, _I, _P],
 }
@@ -78,18 +84,20 @@ def spgemm_gustavson(a: EllMatrix, b: EllMatrix, *, bm: int = 128,
                      bn: int = 128, bk: int = 128,
                      method: str = "auto") -> torch.Tensor:
     """A (K column fibers, ids->M) × B (N column fibers, ids->K) -> ``(M,
-    N)`` in ``result_type(a.vals, b.vals)``. ``bm`` is the M window of the
-    sparse body's empty-window test and ``bn`` the fiber block of B's
-    chunk counts, both shrunk to divide ragged shapes; ``bk`` is the JAX
-    package's K step, which no body here depends on."""
+    N)`` in ``result_type(a.vals, b.vals)``. ``bm``, ``bn`` and ``bk`` are
+    the JAX package's blocks and K step, accepted for the common signature
+    (``bm`` and ``bn`` shrunk to divide ragged shapes, as there); no body
+    here depends on them."""
     assert a.major_axis == 1 and b.major_axis == 1
     m, k = a.shape
     kb, n = b.shape
     assert k == kb, (a.shape, b.shape)
     bm, bn = fit_block(m, bm), fit_block(n, bn)
     dtype = torch.promote_types(a.vals.dtype, b.vals.dtype)
-    a = dataclasses.replace(a, vals=a.vals.to(dtype))
-    b = dataclasses.replace(b, vals=b.vals.to(dtype))
+    if a.vals.dtype != dtype:
+        a = dataclasses.replace(a, vals=a.vals.to(dtype))
+    if b.vals.dtype != dtype:
+        b = dataclasses.replace(b, vals=b.vals.to(dtype))
     if resolve_method(method, k, b.cap) == "sparse":
         return gustavson_sparse(a, b, bm=bm, bn=bn,
                                 fc=min(GUSTAVSON_FIBER_CHUNK, b.cap))
@@ -117,35 +125,41 @@ def _check(what: str, a: EllMatrix, b: EllMatrix) -> int:
     return _build.dtype_code(what, a.vals.dtype, b.vals.dtype)
 
 
+def gustavson_sparse_grid(m: int, n: int) -> tuple:
+    """The sparse kernel's grid for an ``(M, K) x (K, N)`` launch: ``(row
+    blocks, M chunks)``, blocks of :data:`GUSTAVSON_SPARSE_ROWS` of B's
+    fibers (rows of ``Oᵀ``) times chunks of :data:`GUSTAVSON_SPARSE_COLS`
+    of M, the last chunk ragged."""
+    return (-(-n // GUSTAVSON_SPARSE_ROWS), -(-m // GUSTAVSON_SPARSE_COLS))
+
+
 def gustavson_sparse(a: EllMatrix, b: EllMatrix, *, bm: int, bn: int,
                      fc: int) -> torch.Tensor:
-    """The sparse body: A's row scatter + B-driven gather-contract on the
-    card, or :func:`spgemm_gustavson_plain` for CPU tensors."""
+    """The sparse body: the in-place row merge of B's fibers over A's on
+    the card, or :func:`spgemm_gustavson_plain` for CPU tensors. ``bm``,
+    ``bn`` and ``fc`` (the TPU body's M window, B's fiber block and its
+    chunk) are accepted for the common signature and not used: the kernel
+    reads every slot of B and merges A's runs per M chunk of its own."""
     if a.vals.device.type == "cpu":
         return spgemm_gustavson_plain(a, b)
     code = _check("gustavson_sparse", a, b)
     m, k = a.shape
     n = b.shape[1]
-    if m % bm or n % bn:
-        raise ValueError(f"gustavson_sparse: {m} x {n} not multiples of "
-                         f"bm={bm}, bn={bn}")
-    chunks = -(-b.cap // fc)
-    if chunks * fc != b.cap:
-        b = pad_capacity(b, chunks * fc)
-    awin = block_window_nnz(a, bm)                 # A nnz per M window
-    bcnt = block_chunk_counts(b, bn, fc)           # live B chunks per N block
+    if gustavson_sparse_grid(m, n)[1] > 65535:
+        raise ValueError(f"gustavson_sparse: M={m} gives more than 65535 M "
+                         "chunks (the grid's y extent)")
     dev = a.vals.device
-    table = torch.zeros((k, m), dtype=torch.float32, device=dev)
-    out = torch.empty((m, n), dtype=a.vals.dtype, device=dev)
+    a_kind = torch.empty(k, dtype=torch.int32, device=dev)
+    out_t = torch.empty((n, m), dtype=a.vals.dtype, device=dev)
     lib = _build.load("spgemm_gustavson", _SIGNATURES)
     P = _build.ptr
     with torch.cuda.device(dev):
         _build.check(lib.gustavson_sparse_launch(
-            P(a.vals), P(a.ids), a.cap, P(awin), bm, P(b.vals), P(b.ids),
-            b.cap, P(bcnt), bn, fc, P(table), P(out), m, k, n, code,
-            _build.stream(dev)), "gustavson_sparse")
+            P(a.vals), P(a.ids), P(a_kind), a.cap, P(b.vals), P(b.ids),
+            b.cap, P(out_t), m, k, n, code, _build.stream(dev)),
+            "gustavson_sparse")
     launches["gustavson_sparse"] += 1
-    return out
+    return out_t.T
 
 
 def gustavson_reference(a: EllMatrix, b: EllMatrix, *, bn: int,

@@ -1,22 +1,32 @@
-"""Launch planning of the port's SpMM sparse body and dense GEMM.
+"""Launch planning of the port's row walk (the SpMM and inner sparse
+bodies), row merge (the Gustavson sparse body) and dense GEMM.
 
-Pure functions of shapes (``spmm.spmm_sparse_plan``, ``gemm.gemm_plan``,
-``_build.row_granule``): what each CUDA launch covers, checked on the CPU
-against the limits the kernels rely on. The kernels themselves run only on
-the card (``chip_smoke.py``).
+Pure functions of shapes (``spmm.spmm_sparse_plan``,
+``spgemm_inner.inner_sparse_plan``, ``spgemm_gustavson.
+gustavson_sparse_grid``, ``gemm.gemm_plan``, ``_build.row_granule``,
+``spgemm_inner.fiber_vec``): what each CUDA launch covers, checked on the
+CPU against the limits the kernels rely on. The kernels themselves run
+only on the card (``chip_smoke.py``).
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
+from repro_torch.formats import ell as tell
 from repro_torch.kernels import _build
 from repro_torch.kernels import gemm as tgemm
+from repro_torch.kernels import spgemm_gustavson as tgust
+from repro_torch.kernels import spgemm_inner as tinner
 from repro_torch.kernels import spmm as tspmm
 
 #: Shared memory one block may use on the H100 (bytes), and the SMs.
 H100_BLOCK_SMEM = 232_448
 SMS = 132
+
+#: CUDA's grid limits: x up to 2^31 - 1 blocks, y up to 65535.
+GRID_X_MAX = 2**31 - 1
+GRID_Y_MAX = 65535
 
 
 def slots_for(rows, smem):
@@ -189,3 +199,133 @@ def test_row_granule(shape, dtype, offset, gran):
     base = torch.zeros(shape[0] * shape[1] + offset, dtype=dtype)
     t = base[offset:].view(shape)
     assert _build.row_granule(t) == gran
+
+
+#: (m, k, n) of the inner sparse body's main-path launches, as
+#: ``ops.spgemm_inner_operands`` pads them (lpt bibd_81_3 reduced, lpt
+#: m3plates, lpt chem97ZtZ, lpt citeseer, speech n[975:1300], opt speech
+#: k[0:1950] n[488:1300]), then ragged, tiny, skewed and K > 24576 ones.
+INNER_SHAPES = [
+    (640, 16384, 8320), (11008, 11008, 5504), (2560, 2560, 1280),
+    (3328, 3328, 3712), (7808, 2688, 384), (7808, 2048, 896),
+    (203, 300, 130), (1, 1, 1), (40, 300, 4096), (4096, 300, 40),
+    (256, 30000, 130), (256, 50000, 130), (7, 24577, 33),
+]
+
+
+def ranges(n_split, split_w, n):
+    """The fiber ranges ``[i·split_w, min(n, (i + 1)·split_w))`` of a row
+    walk's splits."""
+    return [(i * split_w, min(n, (i + 1) * split_w)) for i in range(n_split)]
+
+
+@pytest.mark.parametrize("m,k,n", INNER_SHAPES)
+@pytest.mark.parametrize("elem", ELEMS)
+def test_inner_plan_fits_and_covers(m, k, n, elem):
+    """The inner sparse plan: its rows (B's fibers, expanded) fit the
+    block's 96 KB, every one of A's m walked fibers falls in exactly one
+    range, none empty, every one of B's n fibers in exactly one row block,
+    and the 1-D grid stays within CUDA's limit."""
+    plan = tinner.inner_sparse_plan(m, k, n, elem, SMS)
+    rows, window = tspmm.spmm_sparse_rows(n, k, elem)  # the mirrored rows
+    assert (plan.rows, plan.window) == (rows, window)
+    fibers, slots = tinner.INNER_WALK[plan.rows]
+    assert plan.pass_w == tspmm.SPMM_THREADS * fibers
+    assert fibers * plan.rows <= tspmm.SPMM_SUMS and slots >= 1
+    assert plan.split_w % plan.pass_w == 0 or plan.n_split == 1
+    assert plan.rows * plan.window * elem <= tspmm.SPMM_ROWS_BYTES
+    assert 1 <= plan.window <= k
+    assert plan.rows & (plan.rows - 1) == 0 and plan.rows <= tspmm.SPMM_SUMS
+    seen = [0] * m
+    for lo, hi in ranges(plan.n_split, plan.split_w, m):
+        assert lo < hi
+        for f in range(lo, hi):
+            seen[f] += 1
+    assert seen == [1] * m
+    row_blocks = -(-n // plan.rows)
+    assert (row_blocks - 1) * plan.rows < n <= row_blocks * plan.rows
+    assert plan.blocks(n) == row_blocks * plan.n_split <= GRID_X_MAX
+    # A block's first pass gives every thread a fiber where there are
+    # enough of them (bibd_81_3: 640 walked fibers, 256 threads).
+    assert min(plan.split_w, m) >= min(tspmm.SPMM_THREADS, m)
+
+
+@pytest.mark.parametrize("m,k,n,rows,n_split", [
+    (640, 16384, 8320, 1, 1),      # bibd_81_3: 8320 row blocks, one range
+    (11008, 11008, 5504, 2, 1),    # m3plates: 2752 row blocks
+    (3328, 3328, 3712, 4, 1),      # citeseer: 928 row blocks
+    (2560, 2560, 1280, 8, 1),      # chem97ZtZ: 160 row blocks, >= 132 SMs
+    (7808, 2688, 384, 8, 8),       # speech: 48 row blocks, split
+    (7808, 2048, 896, 8, 8),       # opt speech: 112 row blocks, split
+])
+def test_inner_plan_main_path(m, k, n, rows, n_split):
+    """The main-path launches' rows and splits on the H100's 132 SMs (f32):
+    one B fiber a block at bibd_81_3, whose walked side (640 of A's rows)
+    then takes one pass; splits where B's row blocks alone leave SMs idle,
+    into as many ranges as keep the passes of the busiest SM fewest."""
+    plan = tinner.inner_sparse_plan(m, k, n, 4, SMS)
+    assert (plan.rows, plan.n_split) == (rows, n_split)
+    if n_split > 1:   # the busiest SM's passes, against one range a block
+        row_blocks = -(-n // rows)
+        busiest = -(-plan.blocks(n) // SMS) * (plan.split_w // plan.pass_w)
+        whole = -(-row_blocks // SMS) * -(-m // plan.pass_w)
+        assert busiest < whole
+
+
+@pytest.mark.parametrize("k,elem", [(30000, 4), (50000, 2), (24577, 4),
+                                    (49153, 2)])
+def test_inner_plan_k_windows(k, elem):
+    """K too long for one expanded fiber: one fiber a block and windows of
+    16-element multiples within 96 KB, which together cover K; each window
+    reads the fiber's slots again, ``ceil(K / window)`` reads in all."""
+    plan = tinner.inner_sparse_plan(256, k, 130, elem, SMS)
+    assert plan.rows == 1 and plan.window < k
+    assert plan.window % 16 == 0
+    assert plan.window * elem <= tspmm.SPMM_ROWS_BYTES
+    windows = -(-k // plan.window)
+    assert (windows - 1) * plan.window < k <= windows * plan.window
+    assert windows == 2
+
+
+#: (m, n) of the Gustavson sparse body's launches: opt citeseer as
+#: ``ops.spgemm_gustavson_operands`` pads it, then ragged and tiny ones and
+#: M at and around the 1024-wide chunk.
+GUSTAVSON_SHAPES = [
+    (3328, 3712), (2100, 256), (1100, 133), (200, 130), (1, 1),
+    (1024, 8), (1025, 9), (2048, 7), (11008, 5504), (640, 8320),
+]
+
+
+@pytest.mark.parametrize("m,n", GUSTAVSON_SHAPES)
+def test_gustavson_grid_covers(m, n):
+    """The Gustavson sparse grid: every one of B's n fibers (a row of Oᵀ)
+    in exactly one block of 8 (a warp each), the M chunks of 1024 cover M
+    once, none empty and only the last ragged, and both extents within
+    CUDA's limits."""
+    row_blocks, chunks = tgust.gustavson_sparse_grid(m, n)
+    rows = tgust.GUSTAVSON_SPARSE_ROWS
+    cols = tgust.GUSTAVSON_SPARSE_COLS
+    assert (row_blocks - 1) * rows < n <= row_blocks * rows
+    bounds = [(c * cols, min(m, (c + 1) * cols)) for c in range(chunks)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == m
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(hi - lo == cols for lo, hi in bounds[:-1])
+    assert row_blocks <= GRID_X_MAX and chunks <= GRID_Y_MAX
+
+
+@pytest.mark.parametrize("cap,offset,dtype,vec", [
+    (32, 0, torch.float32, 4), (300, 0, torch.float32, 4),
+    (37, 0, torch.float32, 1), (32, 1, torch.float32, 1),
+    (32, 0, torch.bfloat16, 4), (30, 0, torch.bfloat16, 1),
+])
+def test_fiber_vec(cap, offset, dtype, vec):
+    """Slots a load of the inner sparse body's expansion: four where the
+    capacity is a multiple of four and the ids and values start aligned
+    (16 and 4 elements' bytes), else one."""
+    n = 5
+    ids = torch.zeros(n * cap + offset, dtype=torch.int32)[offset:]
+    vals = torch.zeros(n * cap + offset, dtype=dtype)[offset:]
+    e = tell.EllMatrix(vals.view(n, cap), ids.view(n, cap),
+                       torch.zeros(n, dtype=torch.int32), (cap, n), 1)
+    assert tinner.fiber_vec(e) == vec
