@@ -13,7 +13,7 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    Search ``dse.aespa_opt()`` (the paper's searched design) and print its
    clusters and the search's wall time.
 2. Hold each kernel against its plain PyTorch version on the card, at every
-   launch shape the main paths of phases 3, 3c and 3d give it (each shape
+   launch shape the main paths of phases 3 to 3f give it (each shape
    once) and on edge cases (ragged GEMM and Gustavson dims, empty fiber
    blocks and windows, a fiber at exactly its capacity, a K tile live on
    one side only, fibers whose live slots are out of order, both bodies
@@ -69,9 +69,32 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    workloads, on the same operands, each against float64 (Gustavson
    partitions at synthetic_dense, speech and gnmt, citeseer whole), then
    each once more under ``torch.profiler``.
+   3e. The stream executor on the same operands, from the host: the Table I
+   queue under ``lpt`` on ``aespa_opt`` through
+   ``execute_many_kernel_schedule(mesh=StreamMesh(8), pipeline_depth=2,
+   measure=True)``, each cluster's partitions on its own CUDA streams;
+   every output must be the same bits as phase 3c's sequential output of
+   the task. A first (cold) run, then the measured one: wall (beside the
+   sequential path's from the same host operands), peak memory, each
+   cluster's measured busy ms, the measured
+   makespan and ``measured_spatial_speedup``; each cluster's share of the
+   first batch alone on the same lanes (its busy beside its busy in the
+   batch); then one run under ``torch.profiler`` (device busy share).
+   3f. Serving: ``ClusterServer(aespa_opt, policy="optimized").serve(
+   mesh=StreamMesh(8), pipeline_depth=2, measure=True)`` on an
+   18-request, 3-tenant trace (each of the nine workloads twice, phase 3's
+   operands; arrivals and SLAs as ``examples/serve_cluster.py`` builds
+   them). Every response within ``1e-4`` relative of a float64 product,
+   the same bits as the same server's ``mesh=None`` serve, and the
+   placements, p99 wait and busy fractions equal to an offline
+   ``schedule_many_kernels(..., arrivals=admitted)``; after a first (cold)
+   serve, the measured one's wall (beside the ``mesh=None`` serve's), peak
+   memory and measured per-cluster busy, then one run under
+   ``torch.profiler``.
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   paths of phases 3, 3c and 3d (each must be > 0; the counts are set to 0
-   before each phase and read after it) and the numbers of phase 2.
+   paths of phases 3, 3c, 3d, 3e and 3f (each must be > 0; the counts are
+   set to 0 before each phase and read after it) and the numbers of
+   phase 2, whose launch shapes include the serving schedule's.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -93,6 +116,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import repro_torch  # noqa: E402
 from repro_torch.core import dse, scheduler  # noqa: E402
 from repro_torch.core import hetero_matmul as hm  # noqa: E402
+from repro_torch.core.stream_exec import (  # noqa: E402
+    StreamMesh,
+    aggregate_timelines,
+)
 from repro_torch.core.workloads import BY_NAME, Workload, synthesize  # noqa: E402
 from repro_torch.formats import ell  # noqa: E402
 from repro_torch.formats.taxonomy import DataflowClass  # noqa: E402
@@ -103,6 +130,7 @@ from repro_torch.kernels import spgemm_gustavson as gust_mod  # noqa: E402
 from repro_torch.kernels import spgemm_inner as inner_mod  # noqa: E402
 from repro_torch.kernels import spgemm_outer as outer_mod  # noqa: E402
 from repro_torch.kernels import spmm as spmm_mod  # noqa: E402
+from repro_torch.serve import cluster  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the f32
 #: rate of the CUDA cores, the units the ported kernels compute on.
@@ -133,6 +161,10 @@ MAIN_PATH = (
 )
 N_QUEUE = 9
 BLOCK = 128  # the executors' default block
+#: Phases 3e and 3f: a StreamMesh of 8 lanes, the device count of the JAX
+#: package's sharded tests (8 forced host devices).
+N_LANES = 8
+TENANTS = ("tenant_a", "tenant_b", "tenant_c")
 
 REPLACES = {
     "spmm_sparse": ("src/repro_torch/kernels/csrc/spmm.cu",
@@ -1178,7 +1210,7 @@ def placement(a):
 def run_queue(label, run):
     """Run a many-kernel call, timing it on the host clock (ending in a
     synchronize), check every task against float64, and return its
-    schedule."""
+    schedule and outputs."""
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     outs, ms, pairs = run()
@@ -1195,7 +1227,7 @@ def run_queue(label, run):
     log(f"many {label}: wall {wall_ms:.3f} ms for {len(pairs)} tasks, "
         f"modelled makespan {ms.makespan_cycles:.0f} cycles, worst rel err "
         f"{max(rels.values()):.3e}")
-    return ms
+    return ms, outs
 
 
 def measured_workload(name, a_d, b_d):
@@ -1205,6 +1237,188 @@ def measured_workload(name, a_d, b_d):
     nnz = [int(torch.count_nonzero(x)) for x in (a_d, b_d)]
     return Workload(name, "api", m, k, n, nnz[0] / a_d.numel(),
                     nnz[1] / b_d.numel())
+
+
+def serve_trace(config, workloads):
+    """18 requests from 3 tenants: each workload twice, arrivals staggered
+    at 0.25 × the mean per-task share of the offline ``lpt`` makespan, SLA =
+    arrival + half that makespan (``examples/serve_cluster.py``'s
+    ``build_trace``)."""
+    ws = list(workloads) * 2
+    base = scheduler.schedule_many_kernels(config, ws)
+    gap = base.makespan_cycles / len(ws) * 0.25
+    slack = base.makespan_cycles * 0.5
+    return [cluster.Request(f"req{i:02d}", TENANTS[i % len(TENANTS)], w,
+                            arrival_cycles=i * gap,
+                            deadline_cycles=i * gap + slack, seed=i)
+            for i, w in enumerate(ws)]
+
+
+def measured_line(label, config, timelines, wall_ms, base, peak):
+    """Log a streamed run's measured per-cluster busy, makespan and
+    spatial speedup (``aggregate_timelines``) beside its wall and peak
+    memory (and the memory allocated before the run); return the
+    figures."""
+    busy, makespan, sequential = aggregate_timelines(timelines,
+                                                     len(config.clusters))
+    spans = hm.cluster_submeshes(N_LANES, config)
+    # Lane overlap: per batch, Σ span busy over the union window of the
+    # spans that held work (device time), summed over the batches.
+    windows = []
+    for tl in timelines:
+        live = [sp for sp in tl.spans if sp.busy_s > 0]
+        if live:
+            windows.append((max(sp.end_s for sp in live)
+                            - min(sp.start_s for sp in live),
+                            sum(sp.busy_s for sp in live)))
+    window_s = sum(w for w, _ in windows)
+    rec = {
+        "wall_ms": wall_ms, "base_mb": base / 2 ** 20,
+        "peak_mb": peak / 2 ** 20,
+        "batches": len(timelines),
+        "busy_ms": {f"{c.name} lanes {lo}-{hi - 1}": b * 1e3
+                    for c, (_, lo, hi), b in zip(config.clusters, spans,
+                                                 busy)},
+        "measured_makespan_ms": makespan * 1e3,
+        "measured_sequential_ms": sequential * 1e3,
+        "measured_spatial_speedup": (sequential / makespan
+                                     if makespan > 0 else 0.0),
+        "lane_windows_ms": window_s * 1e3,
+        "lane_overlap": (sum(b for _, b in windows) / window_s
+                         if window_s > 0 else 0.0)}
+    log(f"{label} measured: " + json.dumps(rec))
+    log(f"{label} timelines: " + json.dumps([tl.to_json()
+                                             for tl in timelines]))
+    return rec
+
+
+def streamed_queue(host_pairs, schedule, seq_outs):
+    """Phase 3e: the queue on the stream executor from host operands; every
+    output the same bits as the sequential ``seq_outs``. Returns the
+    launches of the run."""
+    n = len(host_pairs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hm.execute_many_kernel_schedule(host_pairs, schedule)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t1) * 1e3
+    log(f"stream: sequential path from host operands, wall {seq_ms:.3f} ms "
+        f"for {n} tasks")
+
+    def run(sink=None):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = hm.execute_many_kernel_schedule(
+            host_pairs, schedule, mesh=StreamMesh(N_LANES), pipeline_depth=2,
+            measure=True, timeline_sink=sink)
+        torch.cuda.synchronize()
+        return outs, (time.perf_counter() - t1) * 1e3
+
+    # A first run pins its host buffers and grows each lane's memory pool;
+    # the measured run after it is the steady state.
+    torch.cuda.empty_cache()
+    log(f"stream: first run (cold), wall {run()[1]:.3f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    sink = []
+    outs, wall_ms = run(sink)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    names = {a.task_index: a.workload.name for a in schedule.assignments}
+    differ = [names[i] for i in range(n)
+              if not torch.equal(outs[i], seq_outs[i])]
+    if differ:
+        raise AssertionError(f"streamed queue: {differ} not the same bits "
+                             "as the sequential path")
+    log(f"stream: {n} outputs the same bits as phase 3c's sequential ones, "
+        f"launches {launches}")
+    measured_line("stream", schedule.config, sink, wall_ms, base, peak)
+    del outs
+    # Each cluster's share of batch 0 alone on the same lanes: its busy
+    # beside its busy in the batch is what the lanes cost each other
+    # (whole-card launch plans, copy engines, memory).
+    first = schedule.assignments[:sink[0].n_jobs]
+    alone = {}
+    for sp in sink[0].spans:
+        mine = [a for a in first if a.cluster == sp.cluster]
+        if mine:
+            one = []   # the second of two runs
+            for _ in range(2):
+                one = []
+                hm.execute_assignment_batches(
+                    [mine], dict(enumerate(host_pairs)), schedule.config,
+                    mesh=StreamMesh(N_LANES), measure=True,
+                    timeline_sink=one)
+            alone[schedule.config.clusters[sp.cluster].name] = {
+                "tasks": [a.workload.name for a in mine],
+                "alone_ms": one[0].spans[sp.cluster].busy_s * 1e3,
+                "in_batch_ms": sp.busy_s * 1e3}
+    log("stream batch 0, each cluster alone: " + json.dumps(alone))
+    log("profile stream queue: " + json.dumps(profile_run(run, top=8)))
+    return launches
+
+
+def serving(config, requests, operands, card_pairs, offline):
+    """Phase 3f: serve ``requests`` on the stream executor; every response
+    against float64 and bit-equal to the ``mesh=None`` serve, placements
+    and telemetry equal to ``offline``. Returns the launches of the
+    run."""
+    def serve():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sr = cluster.ClusterServer(config, policy="optimized").run_trace(
+            requests, operands=operands, mesh=StreamMesh(N_LANES),
+            pipeline_depth=2, measure=True)
+        torch.cuda.synchronize()
+        return sr, (time.perf_counter() - t1) * 1e3
+
+    torch.cuda.empty_cache()
+    log(f"serve: first serve (cold), wall {serve()[1]:.3f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    sr, wall_ms = serve()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    base = cluster.ClusterServer(config, policy="optimized").run_trace(
+        requests, operands=operands)
+    torch.cuda.synchronize()
+    log(f"serve: the mesh=None serve of the same trace, wall "
+        f"{(time.perf_counter() - t1) * 1e3:.3f} ms")
+    worst = 0.0
+    for res, ref_res in zip(sr.results, base.results):
+        r = res.request
+        a_d, b_d = card_pairs[r.request_id]
+        tag = f"serve {r.request_id} {r.workload.name}"
+        worst = max(worst, check_product(tag, res.output, a_d, b_d))
+        if not torch.equal(res.output, ref_res.output):
+            raise AssertionError(f"{tag}: not the same bits as the "
+                                 "mesh=None serve")
+    by_index = {a.task_index: a.placed for a in offline.assignments}
+    st = sr.report.stats
+    if ([by_index[a.task_index] for a in sr.schedule.assignments]
+            != [a.placed for a in sr.schedule.assignments]
+            or st.p99_wait_cycles != offline.stats.p99_wait_cycles
+            or st.busy_fraction != offline.stats.busy_fraction):
+        raise AssertionError("served placements or telemetry differ from "
+                             "the offline schedule")
+    log(f"serve: {len(sr.results)} responses within {worst:.3e} of "
+        "float64, the same bits as the mesh=None serve; placements, p99 "
+        f"wait {st.p99_wait_cycles:.0f} cycles and busy fractions "
+        f"{[round(f, 4) for f in st.busy_fraction]} equal to the offline "
+        f"schedule; {sr.report.n_batches} batches, SLA misses "
+        f"{st.deadline_misses}/{st.deadline_total}, launches {launches}")
+    rec = measured_line("serve", config, sr.timelines, wall_ms, base_mem,
+                        peak)
+    if abs(rec["measured_spatial_speedup"]
+           - st.measured_spatial_speedup) > 1e-9:
+        raise AssertionError("report.stats.measured_* disagree with the "
+                             "timelines")
+    del sr, base
+    log("profile serve: " + json.dumps(profile_run(serve, top=8)))
+    return launches
 
 
 def main() -> int:
@@ -1234,16 +1448,18 @@ def main() -> int:
 
     # Operands and schedules of the main paths, made once from seed 0.
     config = dse.aespa_equal4()
-    runs = []
+    runs, host = [], {}
     for label, wname, max_elems in MAIN_PATH:
         w0 = BY_NAME[wname]
         a, b, (m, k, n) = synthesize(w0, seed=0, max_elems=max_elems)
         w = Workload(w0.name, w0.application, m, k, n, w0.d_mk, w0.d_kn)
+        host[label] = (a, b)
         runs.append((label, w, torch.from_numpy(a).cuda(),
                      torch.from_numpy(b).cuda(),
                      scheduler.schedule_single_kernel(config, w)))
     queue = runs[:N_QUEUE]
     queue_pairs = [(a_d, b_d) for _, _, a_d, b_d, _ in queue]
+    queue_host = [host[label] for label, *_ in queue]
     queue_runs = [(policy, scheduler.schedule_many_kernels(
         config, [r[1] for r in queue], policy=policy))
         for policy in ("lpt", "sjf", "affinity")]
@@ -1271,6 +1487,20 @@ def main() -> int:
     if not on_gust:
         raise AssertionError("lpt on aespa_opt put no task on the "
                              "Gustavson cluster")
+    # Phase 3f's trace and the offline schedule its serve must equal.
+    serve_reqs = serve_trace(opt, [r[1] for r in queue])
+    by_name = {r[1].name: i for i, r in enumerate(queue)}
+    serve_ops = {r.request_id: queue_host[by_name[r.workload.name]]
+                 for r in serve_reqs}
+    serve_card = {r.request_id: queue_pairs[by_name[r.workload.name]]
+                  for r in serve_reqs}
+    serve_offline = scheduler.schedule_many_kernels(
+        opt, [r.workload for r in serve_reqs], policy="optimized",
+        arrivals=[r.arrival_cycles for r in serve_reqs])
+    serve_pairs = [serve_card[r.request_id] for r in serve_reqs]
+    log("serve optimized placement: " + ", ".join(
+        f"{serve_reqs[a.task_index].request_id} {a.workload.name}: "
+        f"{placement(a)}" for a in serve_offline.assignments))
 
     # ---- phase 2: each kernel against its plain version ----------------
     # Every launch shape of phases 3 and 3c, each once.
@@ -1282,7 +1512,8 @@ def main() -> int:
                     for label, w, a_d, b_d, schedule in opt_runs]
     for policy, ms, pairs in ([(p, ms, queue_pairs) for p, ms in queue_runs]
                               + [("optimized", optimized, twice),
-                                 ("opt lpt", opt_lpt, queue_pairs)]):
+                                 ("opt lpt", opt_lpt, queue_pairs),
+                                 ("serve", serve_offline, serve_pairs)]):
         launch_sets += [(f"{policy} {asg.workload.name}",
                          *pairs[asg.task_index],
                          [pp.partition for pp in asg.placed])
@@ -1350,10 +1581,12 @@ def main() -> int:
     for policy, ms in queue_runs:
         run_queue(policy, lambda: (hm.execute_many_kernel_schedule(
             queue_pairs, ms), ms, queue_pairs))
-    got = run_queue("optimized synthetic_dense x2", lambda: (
+    got, _ = run_queue("optimized synthetic_dense x2", lambda: (
         *hm.hetero_many_matmul(twice, config, policy="optimized"), twice))
-    run_queue("opt lpt", lambda: (hm.execute_many_kernel_schedule(
-        queue_pairs, opt_lpt), opt_lpt, queue_pairs))
+    # Phase 3e holds the stream executor to these outputs, bit for bit.
+    _, opt_lpt_outs = run_queue("opt lpt", lambda: (
+        hm.execute_many_kernel_schedule(queue_pairs, opt_lpt), opt_lpt,
+        queue_pairs))
     many_launches = counts()
     if [a.placed for a in got.assignments] != [
             a.placed for a in optimized.assignments]:
@@ -1401,9 +1634,21 @@ def main() -> int:
             profile_run(lambda: hm.execute_schedule(a_d, b_d, schedule))))
     log(f"phase 3d profile: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 3e: the stream executor ----------------------------------
+    t0 = time.perf_counter()
+    stream_launches = streamed_queue(queue_host, opt_lpt, opt_lpt_outs)
+    del opt_lpt_outs
+    log(f"phase 3e stream executor: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 3f: serving on the stream executor ------------------------
+    t0 = time.perf_counter()
+    serve_launches = serving(opt, serve_reqs, serve_ops, serve_card,
+                             serve_offline)
+    log(f"phase 3f serving: {time.perf_counter() - t0:.1f} s")
+
     # ---- phase 4: the kernels line ---------------------------------------
     launches = {k: single_launches[k] + many_launches[k] + opt_launches[k]
-                for k in REPLACES}
+                + stream_launches[k] + serve_launches[k] for k in REPLACES}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]

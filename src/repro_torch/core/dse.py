@@ -11,13 +11,19 @@ on the JAX package; it is numpy throughout and runs on the host.
   around the incumbent until no proposal improves.
 * :func:`compare_to_baselines` — speedup/energy/EDP ratios against the
   paper's homogeneous designs at the full area budget.
+* :func:`co_search` — design × policy co-DSE: the best (design,
+  scheduling policy) pair for a *traffic* of kernels, offline (whole-queue
+  makespan) and online (staggered arrivals, queueing stats), under
+  ``schedule_many_kernels`` across the registered policies; serving
+  (``repro_torch.serve.cluster.deploy_from_dse``) is its user.
 * :func:`aespa_opt` — the paper's "high performance configuration
   searched by our model", the design whose Gustavson partitions run on
   the card through ``kernels/spgemm_gustavson``.
 
-Not ported yet (ROADMAP.md): the design × policy co-DSE (``co_search``,
-``evaluate_traffic``, ``traffic_arrivals``), which only serving needs, and
-the JAX package's ``obs`` counters and trace events around the search.
+The search counts its evaluations and incumbent improvements
+(``dse.evaluations``, ``dse.incumbent_improved``) in ``repro_torch.obs``
+and, while tracing is on, records them on the host timeline, as the JAX
+package does.
 """
 from __future__ import annotations
 
@@ -29,11 +35,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs as _obs
 from repro_torch.core import costmodel as cm
 from repro_torch.core import hwdb
 from repro_torch.core import scheduler as _sched
 from repro_torch.core.workloads import TABLE_I, Workload
 from repro_torch.formats.taxonomy import DataflowClass
+from repro_torch.obs import trace as _trace_mod
+
+# DSE progress metrics: total candidate evaluations (batched passes inc
+# by batch size) and incumbent improvements; the tracer mirrors them as
+# a counter track / instant events on the host timeline while enabled.
+_MET_EVALS = _obs.METRICS.counter("dse.evaluations")
+_MET_IMPROVED = _obs.METRICS.counter("dse.incumbent_improved")
 
 CLASSES = tuple(DataflowClass)
 
@@ -237,6 +251,22 @@ def compare_to_baselines(
 
 
 # ---------------------------------------------------------------- search
+def _config_for(vec: Tuple[float, ...],
+                classes: Tuple[DataflowClass, ...],
+                hbm_bw: float,
+                scratchpad_bytes: float = hwdb.SCRATCH_BYTES,
+                ) -> Optional[Tuple[Dict, cm.AcceleratorConfig]]:
+    fractions = {c: f for c, f in zip(classes, vec) if f > 0}
+    if not fractions:
+        return None
+    config = cm.aespa_from_fractions(fractions, name="aespa_dse",
+                                     hbm_bw=hbm_bw,
+                                     scratchpad_bytes=scratchpad_bytes)
+    if not config.clusters:
+        return None
+    return fractions, config
+
+
 def _refine_neighbours(vec: Tuple[float, ...], delta: float):
     """±delta transfers between every ordered class pair, clipped to the
     simplex (donor must hold at least ``delta``)."""
@@ -344,6 +374,8 @@ def search(
     def eval_all(keys: Sequence[Key]) -> List[Optional[DsePoint]]:
         todo = [k for k in keys if k not in seen]
         if todo:
+            _MET_EVALS.inc(len(todo))
+            t_batch = time.perf_counter()
             vecs = np.asarray([k[0] for k in todo], dtype=np.float64)
             batch = cm.ConfigBatch.from_fractions(
                 vecs, classes,
@@ -372,6 +404,15 @@ def search(
                               float(ev.geomean_edp[i])),
                     hbm_bw=float(batch.hbm_bw[i]),
                     scratchpad_bytes=float(batch.scratchpad_bytes[i]))
+            if _trace_mod.ENABLED:
+                dt = max(time.perf_counter() - t_batch, 1e-9)
+                tr = _trace_mod.TRACE
+                tr.complete("eval_batch", tr.ts_from_perf(t_batch),
+                            dt * 1e6, pid=_trace_mod.PID_HOST, tid="dse",
+                            cat="dse", candidates=len(todo))
+                tr.counter("dse_evals", pid=_trace_mod.PID_HOST, tid="dse",
+                           total=float(_MET_EVALS.value),
+                           evals_per_sec=len(todo) / dt)
         return [seen[k] for k in keys]
 
     # Stage 1: coarse proposal sweep — simplex × memory grids, evaluated
@@ -395,6 +436,13 @@ def search(
 
     best_key = min(seen, key=lambda k: obj(seen[k]) if seen[k] else math.inf)
     best = seen[best_key]
+    _MET_IMPROVED.inc()
+    if _trace_mod.ENABLED:
+        _trace_mod.TRACE.instant(
+            "incumbent_improved", pid=_trace_mod.PID_HOST, tid="dse",
+            cat="dse", stage="coarse", objective=objective,
+            score=obj(best), fractions=dict(
+                (c.value, f) for c, f in best.fractions))
 
     # Stage 2: cost-ranked local refinement until converged — half-step
     # fraction transfers, then one-notch moves per memory axis.
@@ -412,6 +460,12 @@ def search(
             for key, p in zip(neigh, eval_all(neigh)):
                 if p is not None and obj(p) < obj(best):
                     best, best_key, improved = p, key, True
+                    _MET_IMPROVED.inc()
+                    if _trace_mod.ENABLED:
+                        _trace_mod.TRACE.instant(
+                            "incumbent_improved", pid=_trace_mod.PID_HOST,
+                            tid="dse", cat="dse", stage="refine",
+                            objective=objective, score=obj(p))
 
     fractions = best.fractions_dict
     config = cm.aespa_from_fractions(fractions, name="aespa_dse",
@@ -432,6 +486,190 @@ def search(
         wall_time_s=time.perf_counter() - t0,
         baselines=baselines,
         pareto=pareto_front(evaluated) if with_pareto else (),
+    )
+
+
+# ------------------------------------------------- design × policy co-DSE
+@dataclasses.dataclass(frozen=True)
+class TrafficEval:
+    """One (design, policy) cell of the co-DSE grid."""
+
+    policy: str
+    makespan_s: float                  # offline: whole queue, arrivals 0
+    utilization: float                 # offline PE-weighted busy fraction
+    online_makespan_s: float           # staggered-arrival scenario
+    online_mean_wait_cycles: float
+    online_mean_turnaround_cycles: float
+
+    def objective(self, name: str) -> float:
+        if name == "makespan":
+            return self.makespan_s
+        if name == "mean_wait":
+            return self.online_mean_wait_cycles
+        if name == "turnaround":
+            return self.online_mean_turnaround_cycles
+        raise ValueError(
+            f"unknown traffic objective {name!r}; one of "
+            "('makespan', 'mean_wait', 'turnaround')")
+
+    def to_json(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class CoDseResult:
+    """Best (design, policy) pair for a traffic, plus the full grid row
+    of the winning design (one TrafficEval per policy)."""
+
+    config: cm.AcceleratorConfig
+    fractions: Dict[DataflowClass, float]
+    policy: str
+    objective: str
+    best: TrafficEval
+    per_policy: Dict[str, TrafficEval]
+    evaluations: int
+    wall_time_s: float
+
+    def to_json(self) -> Dict:
+        return {
+            "config": cm.config_to_json(self.config),
+            "fractions": {c.value: f for c, f in self.fractions.items()},
+            "policy": self.policy,
+            "objective": self.objective,
+            "best": self.best.to_json(),
+            "per_policy": {k: v.to_json()
+                           for k, v in self.per_policy.items()},
+            "evaluations": self.evaluations,
+            "wall_time_s": self.wall_time_s,
+        }
+
+
+def traffic_arrivals(config: cm.AcceleratorConfig,
+                     tasks: Sequence[Workload],
+                     arrival_gap_factor: float = 0.25) -> List[float]:
+    """Arrival times of the online scenario for a doubled queue: staggered
+    at ``arrival_gap_factor`` × the mean per-task share of the design's
+    own LPT makespan — arrivals outpace service, so queues build and the
+    priority rules separate (same construction as Fig 12's online sweep).
+    Depends only on ``(config, tasks)`` — compute once per design and
+    share across policies."""
+    base = _sched.schedule_many_kernels(config, tasks, policy="lpt")
+    n = max(len(tasks) * 2, 1)
+    gap = base.makespan_cycles / n * arrival_gap_factor
+    return [i * gap for i in range(len(tasks) * 2)]
+
+
+def evaluate_traffic(config: cm.AcceleratorConfig,
+                     tasks: Sequence[Workload],
+                     policy: str,
+                     arrival_gap_factor: float = 0.25,
+                     arrivals: Optional[Sequence[float]] = None
+                     ) -> TrafficEval:
+    """Offline + online many-kernel metrics of one design under one
+    policy (online scenario per :func:`traffic_arrivals`; pass
+    ``arrivals`` to reuse them across the policies of one design)."""
+    offline = _sched.schedule_many_kernels(config, tasks, policy=policy)
+    online_tasks = list(tasks) * 2
+    if arrivals is None:
+        arrivals = traffic_arrivals(config, tasks, arrival_gap_factor)
+    online = _sched.schedule_many_kernels(config, online_tasks,
+                                          policy=policy, arrivals=arrivals)
+    return TrafficEval(
+        policy=policy,
+        makespan_s=offline.makespan_s,
+        utilization=offline.stats.utilization,
+        online_makespan_s=online.makespan_s,
+        online_mean_wait_cycles=online.stats.mean_wait_cycles,
+        online_mean_turnaround_cycles=online.stats.mean_turnaround_cycles,
+    )
+
+
+def co_search(
+    tasks: Sequence[Workload] = TABLE_I,
+    hbm_bw: Optional[float] = None,
+    step: float = 0.25,
+    classes: Tuple[DataflowClass, ...] = CLASSES,
+    policies: Optional[Sequence[str]] = None,
+    objective: str = "makespan",
+    arrival_gap_factor: float = 0.25,
+    verbose: bool = False,
+    hbm_bw_grid: Optional[Sequence[float]] = None,
+    scratchpad_grid: Optional[Sequence[float]] = None,
+) -> CoDseResult:
+    """Design × policy co-DSE (paper §V-B meets §VII): sweep the joint
+    design space (fraction simplex × ``hbm_bw_grid`` × ``scratchpad_grid``)
+    and score every candidate under every registered scheduling policy,
+    offline and under an online staggered-arrival scenario, so the engine
+    answers "best design *and policy* for this traffic" rather than for
+    one kernel at a time.
+
+    Many-kernel traffic evaluation is event-driven per candidate rather
+    than an array sweep, but every per-(cluster, workload) placement cost
+    inside it is memoized (``scheduler._best_on_cluster``), so the joint
+    sweep amortizes across candidates that share memory provisioning.
+
+    ``objective``: ``makespan`` (offline throughput), ``mean_wait`` or
+    ``turnaround`` (online latency). Raises :class:`ValueError` on an
+    unknown policy, a step that does not divide 1, an empty or
+    non-positive memory grid, or an empty sweep.
+    """
+    _simplex_steps(step)
+    hbm_bw = hwdb.HBM_BW if hbm_bw is None else hbm_bw
+    bw_grid, scratch_grid = _memory_grids(hbm_bw, hbm_bw_grid,
+                                          scratchpad_grid)
+    pols = tuple(policies if policies is not None
+                 else _sched.available_policies())
+    for p in pols:
+        _sched.get_policy(p)  # raise early on unknown names
+    if not pols:
+        raise ValueError("co_search needs at least one scheduling policy")
+    t0 = time.perf_counter()
+
+    if not classes:
+        raise ValueError("co_search over an empty class tuple")
+    candidates = []
+    for vec in _simplex(step, len(classes)):
+        for bw in bw_grid:
+            for sc in scratch_grid:
+                built = _config_for(vec, classes, bw, scratchpad_bytes=sc)
+                if built is not None:
+                    candidates.append(built)
+    if not candidates:
+        raise ValueError(
+            f"co-DSE simplex over {[c.value for c in classes]} at step "
+            f"{step} produced no feasible config")
+
+    def eval_design(built) -> Tuple[Dict, cm.AcceleratorConfig,
+                                    Dict[str, TrafficEval]]:
+        fractions, config = built
+        arrivals = traffic_arrivals(config, tasks, arrival_gap_factor)
+        row = {p: evaluate_traffic(config, tasks, p, arrival_gap_factor,
+                                   arrivals=arrivals)
+               for p in pols}
+        return fractions, config, row
+
+    rows = [eval_design(b) for b in candidates]
+
+    best_row = None
+    for fractions, config, row in rows:
+        pol = min(row, key=lambda p: row[p].objective(objective))
+        cell = row[pol]
+        if best_row is None or (cell.objective(objective)
+                                < best_row[3].objective(objective)):
+            best_row = (fractions, config, pol, cell, row)
+            if verbose:
+                print(f"co-DSE best so far: {fractions} × {pol} -> "
+                      f"{objective}={cell.objective(objective):.3e}")
+    fractions, config, pol, cell, row = best_row
+    return CoDseResult(
+        config=config,
+        fractions=fractions,
+        policy=pol,
+        objective=objective,
+        best=cell,
+        per_policy=row,
+        evaluations=len(rows) * len(pols),
+        wall_time_s=time.perf_counter() - t0,
     )
 
 

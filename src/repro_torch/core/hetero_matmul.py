@@ -2,18 +2,27 @@
 ``repro.core.hetero_matmul``: runs a :class:`KernelSchedule` numerically by
 dispatching each partition to its dataflow-class kernel and merging the
 partial outputs (paper §V-A: K-split partials are reduced at the end), and
-runs many-kernel schedules task by task through the same path
+runs many-kernel schedules through the same path
 (:func:`execute_assignments`, :func:`execute_many_kernel_schedule`,
-:func:`hetero_many_matmul`). Only the sequential path is ported: the JAX
-package's sharded and pipelined options (``mesh``, ``pipeline_depth``,
-``shard_operands``) wait for the stream executor (ROADMAP.md).
+:func:`hetero_many_matmul`, :func:`execute_assignment_batches`).
+
+``mesh=None`` (default) is the sequential path: one task after another on
+the caller's stream. ``mesh=StreamMesh(n)`` switches to the stream executor
+(``repro_torch.core.stream_exec``): each cluster's partitions run on its
+own CUDA streams (:func:`cluster_submeshes`), concurrently, with
+``pipeline_depth`` batches in flight, per-lane packed uploads
+(``shard_operands``) and measured per-cluster timelines (``measure``,
+``timeline_sink``); its results are the same bits as the sequential
+path's. The JAX package's ``mesh_axis`` and ``interpret`` have no meaning
+on one axis of streams and are left out.
 
 Operands arrive dense (the host knows the true densities and prepares the
-formats, the paper's §VI assumption). Execution stays on the device:
-slicing, format conversion, kernel dispatch and the merge are torch ops on
-device tensors. The one host synchronisation is a batched fetch of the
-per-partition capacity needs (launch shapes are fixed per call), and those
-capacities are power-of-two bucketed as on the JAX side.
+formats, the paper's §VI assumption). On the sequential path execution
+stays on the device: slicing, format conversion, kernel dispatch and the
+merge are torch ops on device tensors. The one host synchronisation is a
+batched fetch of the per-partition capacity needs (launch shapes are fixed
+per call), and those capacities are power-of-two bucketed as on the JAX
+side.
 """
 from __future__ import annotations
 
@@ -147,9 +156,43 @@ def prepare_partitions(jobs):
     return prepared
 
 
+def _merge_partials(shape, dtype, device, rows) -> torch.Tensor:
+    """Merge ``rows = [(region, partial), ...]`` (partition order) into a
+    zero output: K-split partials for the same output tile sum first, then
+    each tile lands with one add. The sequential and streamed executors
+    both merge here, so they give the same bits."""
+    tiles: dict = {}
+    for r, q in rows:
+        tiles.setdefault((r.m0, r.m1, r.n0, r.n1), []).append(q)
+    out = torch.zeros(shape, dtype=dtype, device=device)
+    for (m0, m1, n0, n1), partials in tiles.items():
+        acc = partials[0].to(dtype)
+        for q in partials[1:]:
+            acc = acc + q.to(dtype)
+        out[m0:m1, n0:n1] += acc
+    return out
+
+
+def _mesh_device(device, mesh):
+    """The device a call runs on: the mesh's when one is given (a
+    ``device=`` beside it must name the same one), else ``device``."""
+    if mesh is None:
+        return ops.resolve_device(device)
+    if device is not None:
+        want = torch.device(device)
+        if (want.type != mesh.device.type
+                or want.index not in (None, mesh.device.index)):
+            raise ValueError(f"device={device!r} but mesh= is on "
+                             f"{mesh.device}")
+    return mesh.device
+
+
 def execute_schedule(a, b, schedule: KernelSchedule, block: int = 128,
                      device=None,
-                     cost_sink: Optional[list] = None) -> torch.Tensor:
+                     cost_sink: Optional[list] = None,
+                     mesh=None, shard_operands: bool = True,
+                     measure: bool = False,
+                     timeline_sink: Optional[list] = None) -> torch.Tensor:
     """Run every partition on its assigned sub-accelerator kernel and merge.
 
     M/N-split partials tile the output; K-split partials for the same
@@ -159,35 +202,47 @@ def execute_schedule(a, b, schedule: KernelSchedule, block: int = 128,
     the card and raises without one, ``device="cpu"`` runs the plain
     versions.
 
+    ``mesh`` (a :class:`repro_torch.core.stream_exec.StreamMesh`) switches
+    to the stream executor: each cluster's partitions run on its own lanes,
+    concurrently, and merge into the same bits. ``shard_operands``,
+    ``measure`` and ``timeline_sink`` are the stream executor's (see
+    :func:`execute_assignments`); one schedule is one batch, so there is
+    nothing to pipeline.
+
     ``cost_sink`` (optional list) is the achieved-intensity hook: one
     :class:`repro_torch.core.costmodel.SwKernelCost` (``ops.op_cost``) is
     appended per dispatched partition, the modelled FLOPs/bytes/time proxy
     of exactly the kernel call made. Off by default, because each entry
-    reads the partition's true nonzero counts on the host.
+    reads the partition's true nonzero counts on the host; sequential path
+    only (``mesh=None``).
     """
-    dev = ops.resolve_device(device)
+    if cost_sink is not None and mesh is not None:
+        raise ValueError("cost_sink requires the sequential executor "
+                         "(mesh=None)")
+    if mesh is None and measure:
+        raise ValueError("measure=True requires mesh= (a stream-executor "
+                         "feature)")
+    dev = _mesh_device(device, mesh)
+    if mesh is not None:
+        from repro_torch.core.stream_exec import execute_schedule_streamed
+
+        return execute_schedule_streamed(
+            a, b, schedule, mesh, block=block, shard_operands=shard_operands,
+            measure=measure, timeline_sink=timeline_sink)
     a_d, b_d = _operand(a, dev), _operand(b, dev)
     m, n = a_d.shape[0], b_d.shape[1]
-    out_dtype = torch.promote_types(a_d.dtype, b_d.dtype)
     parts = [p for p in schedule.partitions if not p.region.empty]
 
-    tiles: dict = {}
+    rows = []
     for p, sa, sb, caps in prepare_partitions([(a_d, b_d, parts)])[0]:
         pa, pb = _prep_operands(p.cls, sa, sb, p.mirror, caps)
         if cost_sink is not None:
             cost_sink.append(ops.op_cost(p.cls, pa, pb, bm=block, bn=block,
                                          mirror=p.mirror))
-        partial = _dispatch_partition(p.cls, pa, pb, p.mirror, block, dev)
-        r = p.region
-        tiles.setdefault((r.m0, r.m1, r.n0, r.n1), []).append(partial)
-
-    out = torch.zeros((m, n), dtype=out_dtype, device=dev)
-    for (m0, m1, n0, n1), partials in tiles.items():
-        acc = partials[0].to(out_dtype)
-        for q in partials[1:]:
-            acc = acc + q.to(out_dtype)
-        out[m0:m1, n0:n1] += acc
-    return out
+        rows.append((p.region, _dispatch_partition(p.cls, pa, pb, p.mirror,
+                                                   block, dev)))
+    return _merge_partials((m, n), torch.promote_types(a_d.dtype, b_d.dtype),
+                           dev, rows)
 
 
 def hetero_matmul(a, b, config: cm.AcceleratorConfig, block: int = 128,
@@ -240,20 +295,109 @@ def _validated_jobs(assignments, operands_by_index):
     return jobs
 
 
+def execute_assignment_batches(
+    batches,
+    operands_by_index,
+    config: cm.AcceleratorConfig,
+    *,
+    block: int = 128,
+    mesh=None,
+    pipeline_depth: int = 1,
+    shard_operands: bool = True,
+    measure: bool = False,
+    timeline_sink: Optional[list] = None,
+):
+    """Run a STREAM of assignment batches through the stream executor's
+    pipelined path: each batch's partitions go to their clusters' lanes, at
+    most ``pipeline_depth`` batches in flight, so batch N+1's uploads and
+    launches overlap batch N's work. ``measure=True`` stamps each cluster's
+    lanes per batch and appends per-batch
+    :class:`repro_torch.core.stream_exec.BatchTimeline` records to
+    ``timeline_sink``. Requires ``mesh``; returns ``{task_index: output}``
+    across all batches (task indices must be unique across the stream).
+    """
+    if mesh is None:
+        raise ValueError(
+            "execute_assignment_batches requires mesh= (the pipelined "
+            "batch stream is a stream-executor feature; use "
+            "execute_assignments for the sequential path)")
+    from repro_torch.core.stream_exec import execute_job_batches_streamed
+
+    job_batches, order = [], []
+    for batch in batches:
+        jobs = _validated_jobs(batch, operands_by_index)
+        job_batches.append([
+            (a_d, b_d, [pp.partition for pp in asg.placed
+                        if not pp.partition.region.empty])
+            for asg, a_d, b_d in jobs
+        ])
+        order.append([asg.task_index for asg, _, _ in jobs])
+    outs_batches = execute_job_batches_streamed(
+        job_batches, config, mesh, block=block,
+        pipeline_depth=pipeline_depth, shard_operands=shard_operands,
+        measure=measure, timeline_sink=timeline_sink)
+    result = {}
+    for idxs, outs in zip(order, outs_batches):
+        for i, out in zip(idxs, outs):
+            if i in result:
+                raise ValueError(
+                    f"task index {i} appears in more than one batch")
+            result[i] = out
+    return result
+
+
 def execute_assignments(assignments, operands_by_index,
                         config: cm.AcceleratorConfig, block: int = 128,
-                        device=None):
+                        device=None, mesh=None, pipeline_depth: int = 1,
+                        shard_operands: bool = True, measure: bool = False,
+                        timeline_sink: Optional[list] = None):
     """Numerically run a batch of :class:`TaskAssignment` placements.
 
     ``operands_by_index`` maps ``task_index`` -> dense ``(a, b)``; every
-    assignment runs through :func:`execute_schedule` on its placed
-    partitions (including multi-cluster splits with K-partial merging),
-    one task after another on one device. Returns ``{task_index:
-    output}``. ``device=None`` runs on the card and raises without one.
+    assignment runs on its placed partitions (including multi-cluster
+    splits with K-partial merging). Returns ``{task_index: output}``.
+    ``device=None`` runs on the card and raises without one.
+
+    ``mesh=None`` runs one task after another through
+    :func:`execute_schedule`. ``mesh=StreamMesh(n)`` runs the whole batch
+    on the stream executor: every cluster's partitions, across all
+    assignments, on its own lanes, so assignments on different clusters
+    run at the same time. ``shard_operands`` (stream executor only) selects
+    per-lane packed uploads from the host (default) or the whole operands
+    on the card. ``pipeline_depth > 1`` splits the batch into
+    ``min(pipeline_depth, len(assignments))`` contiguous chunks and
+    pipelines them; ``measure=True`` appends one measured
+    :class:`~repro_torch.core.stream_exec.BatchTimeline` per chunk to
+    ``timeline_sink``. The sequential path rejects ``pipeline_depth != 1``
+    and ``measure=True``.
     """
-    dev = ops.resolve_device(device)
+    if pipeline_depth < 1:
+        raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
+    if mesh is None and (pipeline_depth != 1 or measure):
+        raise ValueError(
+            "pipeline_depth > 1 and measure=True require mesh= (both are "
+            "stream-executor features)")
+    dev = _mesh_device(device, mesh)
+    jobs = _validated_jobs(assignments, operands_by_index)
+
+    if mesh is not None:
+        if pipeline_depth > 1 and len(jobs) > 1:
+            n_chunks = min(pipeline_depth, len(jobs))
+            size, rem = divmod(len(jobs), n_chunks)
+            batches, lo = [], 0
+            for c in range(n_chunks):
+                hi = lo + size + (1 if c < rem else 0)
+                batches.append([asg for asg, _, _ in jobs[lo:hi]])
+                lo = hi
+        else:
+            batches = [[asg for asg, _, _ in jobs]]
+        return execute_assignment_batches(
+            batches, operands_by_index, config, block=block, mesh=mesh,
+            pipeline_depth=pipeline_depth, shard_operands=shard_operands,
+            measure=measure, timeline_sink=timeline_sink)
+
     outs = {}
-    for asg, a_d, b_d in _validated_jobs(assignments, operands_by_index):
+    for asg, a_d, b_d in jobs:
         parts = tuple(pp.partition for pp in asg.placed)
         ks = KernelSchedule(asg.workload, config, parts, asg.report)
         outs[asg.task_index] = execute_schedule(a_d, b_d, ks, block=block,
@@ -266,6 +410,11 @@ def execute_many_kernel_schedule(
     schedule: ManyKernelSchedule,
     block: int = 128,
     device=None,
+    mesh=None,
+    pipeline_depth: int = 1,
+    shard_operands: bool = True,
+    measure: bool = False,
+    timeline_sink: Optional[list] = None,
 ) -> List[torch.Tensor]:
     """Numerically run a many-kernel (multi-tenant) schedule.
 
@@ -273,8 +422,10 @@ def execute_many_kernel_schedule(
     queue given to :func:`schedule_many_kernels`; shapes must match that
     task's workload. Every assignment runs on its cluster's (class,
     orientation) pair, including per-partition dispatch and K-split merging
-    for tasks the ``optimized`` policy split. Returns per-task outputs in
-    queue order.
+    for tasks the ``optimized`` policy split. ``mesh`` and the options
+    after it route the queue through the stream executor, as in
+    :func:`execute_assignments`; the outputs are the same bits as the
+    sequential path's. Returns per-task outputs in queue order.
     """
     operands = list(operands)
     if len(operands) != len(schedule.assignments):
@@ -289,8 +440,11 @@ def execute_many_kernel_schedule(
         raise ValueError(
             "schedule assignments lack a complete task_index permutation "
             f"(got {indices}); build schedules via schedule_many_kernels")
-    outs = execute_assignments(schedule.assignments, dict(enumerate(operands)),
-                               schedule.config, block=block, device=device)
+    outs = execute_assignments(
+        schedule.assignments, dict(enumerate(operands)), schedule.config,
+        block=block, device=device, mesh=mesh,
+        pipeline_depth=pipeline_depth, shard_operands=shard_operands,
+        measure=measure, timeline_sink=timeline_sink)
     return [outs[i] for i in range(len(operands))]
 
 
@@ -301,15 +455,16 @@ def hetero_many_matmul(
     arrivals: Optional[Sequence[float]] = None,
     block: int = 128,
     device=None,
+    mesh=None,
 ):
     """Schedule + execute a queue of matmuls on a heterogeneous accelerator.
 
     Builds one :class:`Workload` per ``(a, b)`` pair (true shapes and exact
     densities, one host sync for all of them), list-schedules the queue
-    under ``policy``, and runs every assignment. Returns ``(outputs,
-    schedule)``.
+    under ``policy``, and runs every assignment (on the stream executor
+    with ``mesh``). Returns ``(outputs, schedule)``.
     """
-    dev = ops.resolve_device(device)
+    dev = _mesh_device(device, mesh)
     dense = [(_operand(a, dev), _operand(b, dev)) for a, b in pairs]
     nnz = (torch.stack([torch.count_nonzero(x) for ab in dense for x in ab])
            .tolist() if dense else [])
@@ -323,5 +478,41 @@ def hetero_many_matmul(
         tasks.append(Workload(f"task{i}", "api", m, k, n, d_mk, d_kn))
     ms = schedule_many_kernels(config, tasks, policy=policy,
                                arrivals=arrivals)
-    outs = execute_many_kernel_schedule(dense, ms, block=block, device=dev)
+    outs = execute_many_kernel_schedule(dense, ms, block=block, device=dev,
+                                        mesh=mesh)
     return outs, ms
+
+
+def cluster_submeshes(n_model_devices: int, config: cm.AcceleratorConfig):
+    """Map clusters onto contiguous slices of the mesh 'model' axis,
+    proportional to PE share (on one card the axis is a
+    :class:`~repro_torch.core.stream_exec.StreamMesh`'s lanes).
+
+    Returns ``[(cluster_index, lo_device, hi_device), ...]`` covering
+    ``range(n_model_devices)`` with every cluster owning at least one
+    device — a proportional split is repaired so tiny-PE clusters never
+    round to an empty span (an empty span would silently drop that
+    cluster's partitions from a sharded run). When the axis has fewer
+    devices than the config has clusters no such repair exists, and the
+    mapping raises ``ValueError`` instead of emitting empty spans.
+    """
+    n_clusters = len(config.clusters)
+    if n_model_devices < n_clusters:
+        raise ValueError(
+            f"cannot map {n_clusters} clusters onto {n_model_devices} "
+            f"device(s): every cluster needs >= 1 device on the mesh "
+            "'model' axis (shrink the config or grow the mesh)")
+    total = sum(c.pes for c in config.clusters)
+    spans = []
+    lo = 0
+    for i, c in enumerate(config.clusters):
+        hi = lo + int(round(n_model_devices * c.pes / total))
+        if i == n_clusters - 1:
+            hi = n_model_devices
+        # Repair the proportional split: at least one device per cluster,
+        # while leaving room for every cluster still to come.
+        hi = max(hi, lo + 1)
+        hi = min(hi, n_model_devices - (n_clusters - 1 - i))
+        spans.append((i, lo, hi))
+        lo = hi
+    return spans

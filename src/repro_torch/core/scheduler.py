@@ -14,8 +14,8 @@ candidate designs in one numpy pass, the DSE's evaluator
 :func:`schedule_many_kernels` list-schedules a queue of independent kernels
 onto the clusters under a registered policy (``lpt``, ``sjf``,
 ``affinity``, ``optimized``; paper §V-B, Fig 12) through the event-stepped
-:class:`OnlineScheduler`. The JAX package's trace hooks on the engine
-(``repro.obs``) are not ported yet (ROADMAP.md).
+:class:`OnlineScheduler`, whose offer, dispatch and defer events and
+``scheduler.*`` counters go to the port's own ``repro_torch.obs``.
 """
 from __future__ import annotations
 
@@ -27,10 +27,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs as _obs
 from repro_torch.core import costmodel as cm
 from repro_torch.core import hwdb
 from repro_torch.core.workloads import Workload
 from repro_torch.formats.taxonomy import DataflowClass
+from repro_torch.obs import trace as _trace_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -780,12 +782,85 @@ class _QueuedTask:
     best_cycles: float
 
 
+# ------------------------------------------------------------ observability
+# Engine events recorded on the VIRTUAL timebase (modelled cycles →
+# microseconds via costmodel.cycles_to_us), copied from the JAX package.
+# The hooks are module-level functions called unconditionally from the
+# engine — they early-return while tracing is disabled, and being plain
+# module globals they can be monkeypatched to no-ops.
+_MET_OFFERS = _obs.METRICS.counter("scheduler.offers")
+_MET_PLACEMENTS = _obs.METRICS.counter("scheduler.placements")
+_MET_DEFERRALS = _obs.METRICS.counter("scheduler.deferrals")
+
+
+def _sched_tid(sched: "OnlineScheduler") -> str:
+    return f"scheduler[{sched.policy.name}]"
+
+
+def _cluster_tid(sched: "OnlineScheduler", ci: int) -> str:
+    return f"cluster{ci}:{sched.config.clusters[ci].name}"
+
+
+def _trace_offer(sched: "OnlineScheduler", q: _QueuedTask) -> None:
+    _MET_OFFERS.inc()
+    if not _trace_mod.ENABLED:
+        return
+    tid = _sched_tid(sched)
+    ts = cm.cycles_to_us(q.arrival)
+    _trace_mod.TRACE.instant(
+        "offer", ts, pid=_trace_mod.PID_VIRTUAL, tid=tid, cat="scheduler",
+        task=q.index, m=q.workload.m, k=q.workload.k, n=q.workload.n,
+        best_cycles=q.best_cycles)
+    _trace_mod.TRACE.counter(
+        "queue_depth", float(sched.queue_depth), ts,
+        pid=_trace_mod.PID_VIRTUAL, tid=tid)
+
+
+def _trace_place(sched: "OnlineScheduler", q: _QueuedTask,
+                 a: TaskAssignment) -> None:
+    _MET_PLACEMENTS.inc()
+    if not _trace_mod.ENABLED:
+        return
+    tr = _trace_mod.TRACE
+    ts_now = cm.cycles_to_us(sched.now)
+    tr.instant(
+        "dispatch", ts_now, pid=_trace_mod.PID_VIRTUAL,
+        tid=_sched_tid(sched), cat="scheduler",
+        task=q.index, policy=sched.policy.name, cluster=a.cluster,
+        cls=a.cls.value, wait_cycles=a.wait_cycles,
+        ready_cycles=[round(r, 1) for r in sched.ready])
+    for pp in a.placed:
+        tr.complete(
+            f"task{q.index}", cm.cycles_to_us(pp.start_cycles),
+            cm.cycles_to_us(pp.cycles), pid=_trace_mod.PID_VIRTUAL,
+            tid=_cluster_tid(sched, pp.partition.cluster), cat="task",
+            task=q.index, cls=pp.partition.cls.value,
+            mirror=pp.partition.mirror,
+            arrival_cycles=q.arrival, policy=sched.policy.name)
+    tr.counter("queue_depth", float(sched.queue_depth), ts_now,
+               pid=_trace_mod.PID_VIRTUAL, tid=_sched_tid(sched))
+
+
+def _trace_defer(sched: "OnlineScheduler", now: float, nxt: float,
+                 n_arrived: int) -> None:
+    _MET_DEFERRALS.inc()
+    if not _trace_mod.ENABLED:
+        return
+    _trace_mod.TRACE.instant(
+        "defer", cm.cycles_to_us(now), pid=_trace_mod.PID_VIRTUAL,
+        tid=_sched_tid(sched), cat="scheduler",
+        arrived=n_arrived, backlog=len(sched._backlog),
+        next_event_cycles=nxt)
+
+
+_obs.METRICS.register_callback("scheduler.caches", schedule_cache_info)
+
+
 class OnlineScheduler:
     """Incremental, event-stepped list-scheduling engine.
 
-    The offline :meth:`SchedulingPolicy.schedule` and a serving runtime
-    (the JAX package's ``ClusterServer``; not ported yet) share this
-    engine:
+    The offline :meth:`SchedulingPolicy.schedule` and the serving runtime
+    (``repro_torch.serve.cluster.ClusterServer``) share this engine:
 
     * :meth:`offer` makes a task visible from ``arrival`` cycles on;
     * :meth:`advance` processes arrival/cluster-free events with cursor
@@ -845,6 +920,7 @@ class OnlineScheduler:
                    for c in self.config.clusters)
         q = _QueuedTask(index, w, max(float(arrival), self.now), best)
         self._backlog.append(q)
+        _trace_offer(self, q)
         return index
 
     def _place(self, q: _QueuedTask) -> TaskAssignment:
@@ -862,6 +938,7 @@ class OnlineScheduler:
         self.ready[ci] = start + cyc
         self._backlog.remove(q)
         self.assignments.append(a)
+        _trace_place(self, q, a)
         return a
 
     def advance(self, until: Optional[float] = None
@@ -908,6 +985,7 @@ class OnlineScheduler:
                 nxt = min(([free] if base_eligible
                            else [eef(q) for q in arrived])
                           + [q.arrival for q in backlog if q.arrival > now])
+                _trace_defer(self, now, nxt, len(arrived))
                 if until is not None and nxt >= until:
                     break
                 now = nxt

@@ -131,6 +131,22 @@ def ell_to_dense(e: EllMatrix) -> torch.Tensor:
     return out.T if e.major_axis == 1 else out
 
 
+def check_capacity(dense, major_axis: int, cap: int) -> bool:
+    """True iff every fiber of ``dense`` fits within ``cap`` nonzeros."""
+    work = torch.as_tensor(dense)
+    return bool(((work != 0).sum(dim=1 - major_axis) <= cap).all())
+
+
+def required_capacity(dense, major_axis: int, align: int = 8) -> int:
+    """Smallest aligned capacity holding every fiber of ``dense`` (one host
+    read of the fullest fiber's count)."""
+    work = torch.as_tensor(dense)
+    need = (int((work != 0).sum(dim=1 - major_axis).max())
+            if work.numel() else 0)
+    need = max(need, 1)
+    return int(-(-need // align) * align)
+
+
 def bucket_capacity(cap: int, align: int = 8, max_cap: int | None = None) -> int:
     """Round a tight capacity up to a power-of-two bucket, so nearby caps
     share launch shapes. ``max_cap`` (usually the fiber's minor size)

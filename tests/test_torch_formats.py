@@ -212,3 +212,100 @@ def test_ell_to_dense_drops_ids_out_of_range_like_jax(where):
     j, t, _ = with_ids_out_of_range(x, 1, 16, where)
     np.testing.assert_array_equal(tell.ell_to_dense(t).numpy(),
                                   np.asarray(jell.ell_to_dense(j)))
+
+
+# ------------------------------------------- converters and capacity helpers
+@pytest.mark.parametrize("major_axis", [0, 1])
+@pytest.mark.parametrize("density", [0.0, 0.1, 1.0])
+def test_required_and_check_capacity_match_jax(major_axis, density):
+    rng = np.random.default_rng(3)
+    x = sparse(rng, 33, 47, density)
+    need = tell.required_capacity(torch.from_numpy(x), major_axis)
+    assert need == jell.required_capacity(x, major_axis)
+    assert tell.required_capacity(x, major_axis, align=4) == \
+        jell.required_capacity(x, major_axis, align=4)
+    for cap in (need // 2, need - 1, need, need + 8):
+        assert tell.check_capacity(torch.from_numpy(x), major_axis, cap) \
+            == jell.check_capacity(jnp.asarray(x), major_axis, cap)
+
+
+@pytest.mark.parametrize("operand,src,dst", [
+    ("A", "A_UMUK", "A_UMCK"), ("A", "A_UMUK", "A_UKCM"),
+    ("A", "A_UMCK", "A_UKCM"), ("A", "A_UKCM", "A_UMUK"),
+    ("B", "B_UKUN", "B_UNCK"), ("B", "B_UKUN", "B_UKCN"),
+    ("B", "B_UNCK", "B_UKCN"), ("B", "B_UKCN", "B_UKCN")])
+def test_convert_matches_jax(operand, src, dst):
+    import sys
+
+    from repro.formats import taxonomy as jtax
+    from repro_torch.formats import convert as tconv
+    from repro_torch.formats import taxonomy as ttax
+
+    # ``repro.formats`` re-exports a function named like its module.
+    jconv = sys.modules["repro.formats.convert"]
+    rng = np.random.default_rng(4)
+    x = sparse(rng, 40, 24, 0.2)
+    cap = 16
+    js, jd = getattr(jtax, src), getattr(jtax, dst)
+    ts, td = getattr(ttax, src), getattr(ttax, dst)
+    assert tconv.major_axis_for(td, operand) == \
+        jconv.major_axis_for(jd, operand)
+    j = jconv.convert(jconv.to_format(jnp.asarray(x), js, operand, cap),
+                      js, jd, operand, cap)
+    t = tconv.convert(tconv.to_format(torch.from_numpy(x), ts, operand,
+                                      cap), ts, td, operand, cap)
+    if td.is_dense:
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    else:
+        assert_same_ell(j, t)
+    np.testing.assert_array_equal(tconv.to_dense(t).numpy(),
+                                  np.asarray(jconv.to_dense(j)))
+    for d in (0.0, 0.2, 1.0):
+        assert tconv.conversion_bytes((40, 24), d, ts, td) == \
+            jconv.conversion_bytes((40, 24), d, js, jd)
+
+
+def test_convert_strict_raises_like_jax():
+    import sys
+
+    from repro.formats import taxonomy as jtax
+    from repro_torch.formats import convert as tconv
+    from repro_torch.formats import taxonomy as ttax
+
+    jconv = sys.modules["repro.formats.convert"]
+    x = np.ones((8, 8), np.float32)
+    with pytest.raises(ValueError, match="strict"):
+        jconv.to_format(jnp.asarray(x), jtax.A_UMCK, "A", 4, strict=True)
+    with pytest.raises(ValueError, match="strict"):
+        tconv.to_format(torch.from_numpy(x), ttax.A_UMCK, "A", 4,
+                        strict=True)
+    with pytest.raises(ValueError):
+        tconv.major_axis_for(ttax.A_UMCK, "C")
+
+
+def test_package_surface_re_exports():
+    """``repro_torch``'s ``__init__`` files re-export what ``repro``'s do
+    (bar the TPU-only names), and a module stays a module where ``repro``
+    re-exports a function of the same name over it."""
+    import repro.formats as jformats
+    import repro_torch.core as tcore
+    import repro_torch.formats as tformats
+    import repro_torch.kernels as tkernels
+    from repro_torch.core import execute_schedule  # noqa: F401
+
+    assert set(jformats.__all__) - set(tformats.__all__) == {
+        "ell_onehot_expand"}
+    for name in tformats.__all__:
+        assert hasattr(tformats, name), name
+    for name in tcore.__all__:
+        assert hasattr(tcore, name), name
+    assert tcore.execute_schedule is tcore.hetero_matmul.execute_schedule
+    from importlib import import_module
+    for pkg, mod in [("kernels", m) for m in (
+            "gemm", "spmm", "spgemm_inner", "spgemm_outer",
+            "spgemm_gustavson")] + [("core", "hetero_matmul"),
+                                    ("formats", "convert")]:
+        name = f"repro_torch.{pkg}.{mod}"
+        assert getattr(import_module(f"repro_torch.{pkg}"), mod) is \
+            import_module(name), name
+    assert tkernels.DISPATCH is tkernels.ops.DISPATCH
