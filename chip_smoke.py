@@ -91,10 +91,27 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    serve, the measured one's wall (beside the ``mesh=None`` serve's), peak
    memory and measured per-cluster busy, then one run under
    ``torch.profiler``.
+   3g. The fleet: ``FleetServer(aespa_opt, n_replicas=3,
+   policy="affinity", fault_plan=FaultPlan.kill_mid_batch(target, 0),
+   failover_detect_cycles=1000.0).run_trace(..., mesh=StreamMesh(8),
+   pipeline_depth=2)`` on phase 3f's trace and operands (``target`` is the
+   replica the router gives ``req00``'s tenant; ``examples/fleet_serve.py``
+   builds the same fleet). Every request served exactly once, at least one
+   requeued, two replicas live; every output within ``1e-4`` relative of
+   float64 and the same bits as the same fleet's ``mesh=None`` run; every
+   surviving replica's schedule equal to the offline ``affinity``
+   ``schedule_many_kernels`` on its admissions; every class the fleet
+   placed work on launched. After a first (cold) run, the measured one's
+   wall beside phase 3f's, peak memory, launches, requeued and SLA misses
+   (failover and tenant), then one run under ``torch.profiler``; the
+   ``backend="subprocess"`` fleet (three child interpreters, telemetry
+   only) must route and time every request as the in-process one does.
+   The fleet's Chrome trace goes to ``chiprun_out/fleet_trace.json``.
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   paths of phases 3, 3c, 3d, 3e and 3f (each must be > 0; the counts are
-   set to 0 before each phase and read after it) and the numbers of
-   phase 2, whose launch shapes include the serving schedule's.
+   paths of phases 3, 3c, 3d, 3e, 3f and 3g (each must be > 0; the counts
+   are set to 0 before each phase and read after it) and the numbers of
+   phase 2, whose launch shapes include the serving and fleet
+   schedules'.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -130,7 +147,9 @@ from repro_torch.kernels import spgemm_gustavson as gust_mod  # noqa: E402
 from repro_torch.kernels import spgemm_inner as inner_mod  # noqa: E402
 from repro_torch.kernels import spgemm_outer as outer_mod  # noqa: E402
 from repro_torch.kernels import spmm as spmm_mod  # noqa: E402
+from repro_torch.launch.fleet import FaultPlan, FleetServer  # noqa: E402
 from repro_torch.serve import cluster  # noqa: E402
+from repro_torch.serve.router import Router  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the f32
 #: rate of the CUDA cores, the units the ported kernels compute on.
@@ -165,6 +184,17 @@ BLOCK = 128  # the executors' default block
 #: package's sharded tests (8 forced host devices).
 N_LANES = 8
 TENANTS = ("tenant_a", "tenant_b", "tenant_c")
+#: Phase 3g: three replicas, as ``examples/fleet_serve.py`` launches them.
+FLEET_REPLICAS = ("replica0", "replica1", "replica2")
+#: The kernel bodies that run each dataflow class's partitions.
+BODIES = {
+    DataflowClass.GEMM: ("gemm",),
+    DataflowClass.SPMM: ("spmm_sparse", "spmm_reference"),
+    DataflowClass.SPGEMM_INNER: ("inner_sparse", "inner_reference"),
+    DataflowClass.SPGEMM_OUTER: ("outer_sparse", "outer_reference"),
+    DataflowClass.SPGEMM_GUSTAVSON: ("gustavson_sparse",
+                                     "gustavson_reference"),
+}
 
 REPLACES = {
     "spmm_sparse": ("src/repro_torch/kernels/csrc/spmm.cu",
@@ -1418,6 +1448,149 @@ def serving(config, requests, operands, card_pairs, offline):
                              "timelines")
     del sr, base
     log("profile serve: " + json.dumps(profile_run(serve, top=8)))
+    return launches, wall_ms
+
+
+def fleet_target(requests) -> int:
+    """The replica the fleet's router gives the first request's tenant."""
+    rid = Router(list(FLEET_REPLICAS)).route(requests[0].tenant)
+    return FLEET_REPLICAS.index(rid)
+
+
+def fleet_server(config, target=None, backend="inproc"):
+    """Phase 3g's fleet: three replicas under ``affinity``; replica
+    ``target`` killed mid-way through its first batch (no fault when
+    ``target`` is None, as the subprocess backend needs)."""
+    if target is None:
+        return FleetServer(config, n_replicas=len(FLEET_REPLICAS),
+                           policy="affinity", backend=backend)
+    return FleetServer(config, n_replicas=len(FLEET_REPLICAS),
+                       policy="affinity",
+                       fault_plan=FaultPlan.kill_mid_batch(target, batch=0),
+                       failover_detect_cycles=1000.0)
+
+
+def fleet_assignments(fr):
+    """``(replica outcome, request_id, assignment)`` for every placement a
+    fleet run executes: survivors' final schedules, the dead replica's
+    retired work."""
+    out = []
+    for ro in fr.replicas:
+        rid_of = {i: rid for i, rid, _ in ro.admitted}
+        done = (ro.schedule.assignments if ro.schedule is not None
+                else ro.retired)
+        out += [(ro, rid_of[a.task_index], a) for a in done]
+    return out
+
+
+def fleet(config, requests, operands, card_pairs, serve_wall_ms):
+    """Phase 3g: the fleet with a replica killed mid-batch on the stream
+    executor; every response once, against float64, bit-equal to the
+    ``mesh=None`` fleet, survivors' schedules equal to the offline oracle,
+    the subprocess backend's routing equal to the in-process one's.
+    Returns the launches of the run."""
+    target = fleet_target(requests)
+
+    def run(mesh=True):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fr = fleet_server(config, target).run_trace(
+            requests, operands=operands,
+            mesh=StreamMesh(N_LANES) if mesh else None,
+            pipeline_depth=2 if mesh else 1)
+        torch.cuda.synchronize()
+        return fr, (time.perf_counter() - t1) * 1e3
+
+    torch.cuda.empty_cache()
+    log(f"fleet: first run (cold), wall {run()[1]:.3f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    fr, wall_ms = run()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    base, base_ms = run(mesh=False)
+
+    ids = [rec.request.request_id for rec in fr.records]
+    if (sorted(ids) != sorted(r.request_id for r in requests)
+            or len(set(ids)) != len(ids)):
+        raise AssertionError(f"fleet: requests not served exactly once: "
+                             f"{ids}")
+    rep = fr.report
+    if rep.requeued_requests < 1 or rep.n_replicas_live != 2:
+        raise AssertionError(
+            f"fleet: requeued {rep.requeued_requests}, live replicas "
+            f"{rep.n_replicas_live}; the kill of replica{target} should "
+            "requeue work and leave two")
+    worst = 0.0
+    for rec, ref_rec in zip(fr.records, base.records):
+        r = rec.request
+        tag = f"fleet {r.request_id} {r.workload.name} on {rec.replica}"
+        worst = max(worst, check_product(tag, rec.output,
+                                         *card_pairs[r.request_id]))
+        if (ref_rec.request.request_id != r.request_id
+                or not torch.equal(rec.output, ref_rec.output)):
+            raise AssertionError(f"{tag}: not the same bits as the "
+                                 "mesh=None fleet")
+    by_id = {r.request_id: r for r in requests}
+    for ro in fr.replicas:
+        if not ro.alive or not ro.admitted:
+            continue
+        off = scheduler.schedule_many_kernels(
+            config, [by_id[rid].workload for _, rid, _ in ro.admitted],
+            policy="affinity", arrivals=[adm for _, _, adm in ro.admitted])
+        placed = {a.task_index: a.placed for a in off.assignments}
+        if (ro.schedule.makespan_cycles != off.makespan_cycles
+                or any(a.placed != placed[a.task_index]
+                       for a in ro.schedule.assignments)):
+            raise AssertionError(f"fleet: {ro.rid}'s schedule differs from "
+                                 "the offline affinity schedule")
+    classes = {pp.partition.cls for _, _, a in fleet_assignments(fr)
+               for pp in a.placed if not pp.partition.region.empty}
+    idle = [c.value for c in classes
+            if not any(launches[k] for k in BODIES[c])]
+    if idle:
+        raise AssertionError(f"fleet: no kernel launched for {idle}")
+    log(f"fleet: {len(ids)} requests served once on {rep.n_replicas_live} "
+        f"of {rep.n_replicas_launched} replicas (replica{target} killed at "
+        f"{fr.replicas[target].death_cycles:.0f} cycles), requeued "
+        f"{rep.requeued_requests}, within {worst:.3e} of float64, the same "
+        "bits as the mesh=None fleet; surviving schedules equal to the "
+        f"offline affinity schedule; {rep.n_batches} batches, SLA misses "
+        f"{rep.sla_misses_total}/{rep.stats.deadline_total} (failover "
+        f"{rep.sla_misses_failover}, tenant {rep.sla_misses_tenant}); "
+        f"launches {launches}")
+    log("fleet replicas: " + json.dumps([
+        {k: r[k] for k in ("rid", "alive", "death_cycles", "n_requests",
+                           "n_batches", "makespan_cycles")}
+        for r in (pr.to_json() for pr in rep.per_replica)]))
+    log("fleet measured: " + json.dumps({
+        "wall_ms": wall_ms, "serve_wall_ms": serve_wall_ms,
+        "mesh_none_wall_ms": base_ms, "base_mb": base_mem / 2 ** 20,
+        "peak_mb": peak / 2 ** 20}))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    fr.export_chrome_trace(out / "fleet_trace.json")
+    del fr, base
+
+    # The subprocess backend: three child interpreters (telemetry only)
+    # against the in-process fleet with the same (fault-free) ring.
+    t1 = time.perf_counter()
+    fs = fleet_server(config, backend="subprocess").run_trace(
+        requests, execute=False)
+    sub_ms = (time.perf_counter() - t1) * 1e3
+    fi = fleet_server(config, backend="inproc").run_trace(requests,
+                                                          execute=False)
+    admitted = fs.aggregate_metrics()["counters"].get("serve.admitted")
+    if ([(r.replica, r.start_cycles, r.finish_cycles) for r in fs.records]
+            != [(r.replica, r.start_cycles, r.finish_cycles)
+                for r in fi.records] or admitted != len(requests)):
+        raise AssertionError("fleet: the subprocess backend routed or timed "
+                             "requests otherwise than the in-process one")
+    log(f"fleet: subprocess backend, {len(fs.records)} requests routed and "
+        f"timed as in process, children's serve.admitted {admitted:.0f}, "
+        f"wall {sub_ms:.1f} ms")
+    log("profile fleet: " + json.dumps(profile_run(run, top=8)))
     return launches
 
 
@@ -1501,6 +1674,12 @@ def main() -> int:
     log("serve optimized placement: " + ", ".join(
         f"{serve_reqs[a.task_index].request_id} {a.workload.name}: "
         f"{placement(a)}" for a in serve_offline.assignments))
+    # Phase 3g's placements, from the same fleet run without execution.
+    fleet_plan = fleet_server(opt, fleet_target(serve_reqs)).run_trace(
+        serve_reqs, execute=False)
+    log("fleet affinity placement: " + ", ".join(
+        f"{ro.rid} {rid} {a.workload.name}: {placement(a)}"
+        for ro, rid, a in fleet_assignments(fleet_plan)))
 
     # ---- phase 2: each kernel against its plain version ----------------
     # Every launch shape of phases 3 and 3c, each once.
@@ -1518,6 +1697,9 @@ def main() -> int:
                          *pairs[asg.task_index],
                          [pp.partition for pp in asg.placed])
                         for asg in ms.assignments]
+    launch_sets += [(f"fleet {ro.rid} {asg.workload.name}", *serve_card[rid],
+                     [pp.partition for pp in asg.placed])
+                    for ro, rid, asg in fleet_assignments(fleet_plan)]
     redesigned = []
     for label, a_d, b_d, partitions in launch_sets:
         for case in partition_cases(label, a_d, b_d, partitions, seen):
@@ -1642,13 +1824,20 @@ def main() -> int:
 
     # ---- phase 3f: serving on the stream executor ------------------------
     t0 = time.perf_counter()
-    serve_launches = serving(opt, serve_reqs, serve_ops, serve_card,
-                             serve_offline)
+    serve_launches, serve_wall_ms = serving(opt, serve_reqs, serve_ops,
+                                            serve_card, serve_offline)
     log(f"phase 3f serving: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 3g: the fleet, a replica killed mid-batch -----------------
+    t0 = time.perf_counter()
+    fleet_launches = fleet(opt, serve_reqs, serve_ops, serve_card,
+                           serve_wall_ms)
+    log(f"phase 3g fleet: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: the kernels line ---------------------------------------
     launches = {k: single_launches[k] + many_launches[k] + opt_launches[k]
-                + stream_launches[k] + serve_launches[k] for k in REPLACES}
+                + stream_launches[k] + serve_launches[k] + fleet_launches[k]
+                for k in REPLACES}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]

@@ -883,3 +883,45 @@ def queue_stats(config: AcceleratorConfig,
         deadline_misses=deadline_misses,
         worst_lateness_cycles=worst_late,
     )
+
+
+def merge_queue_stats(replica_busy: Sequence[Tuple[AcceleratorConfig,
+                                                   Sequence[float]]],
+                      wait_cycles: Sequence[float],
+                      turnaround_cycles: Sequence[float],
+                      makespan_cycles: float,
+                      *,
+                      queue_depth: int = 0,
+                      finish_cycles: Optional[Sequence[float]] = None,
+                      deadline_cycles: Optional[
+                          Sequence[Optional[float]]] = None,
+                      ) -> QueueStats:
+    """Fleet-level :class:`QueueStats` over several serving replicas.
+
+    ``replica_busy`` is one ``(config, per-cluster busy cycles)`` pair per
+    replica; the clusters are concatenated into one synthetic fleet-wide
+    config so utilization is PE-weighted over the *union* of all replicas'
+    clusters against the shared fleet makespan (a dead replica's retired
+    busy time still counts — the PEs existed while they worked). Waits,
+    turnarounds and deadlines are the usual per-request ladders, passed
+    across the whole fleet. Used by ``repro_torch.launch.fleet`` for
+    the aggregate report."""
+    if not replica_busy:
+        raise ValueError("merge_queue_stats needs at least one replica")
+    clusters: List[ClusterSpec] = []
+    busy: List[float] = []
+    for cfg, b in replica_busy:
+        if len(b) != len(cfg.clusters):
+            raise ValueError(
+                f"{len(b)} busy entries for {len(cfg.clusters)} clusters "
+                f"of {cfg.name}")
+        clusters.extend(cfg.clusters)
+        busy.extend(float(x) for x in b)
+    fleet_cfg = AcceleratorConfig(
+        f"fleet[{len(replica_busy)}x{replica_busy[0][0].name}]",
+        tuple(clusters), hbm_bw=replica_busy[0][0].hbm_bw,
+        scratchpad_bytes=replica_busy[0][0].scratchpad_bytes)
+    return queue_stats(fleet_cfg, busy, wait_cycles, turnaround_cycles,
+                       makespan_cycles, queue_depth=queue_depth,
+                       finish_cycles=finish_cycles,
+                       deadline_cycles=deadline_cycles)

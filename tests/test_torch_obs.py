@@ -248,7 +248,11 @@ def test_tracing_does_not_change_serve_results():
 def test_dse_search_bumps_the_same_counters_and_events():
     """A small two-stage search: the same evaluation and improvement
     counts in both registries, and the same incumbent events (the eval
-    batches carry wall times, so only their count and sizes compare)."""
+    batches carry wall times, so only their count and sizes compare).
+    The ``dse_evals`` counter events carry the process-wide running
+    total, which grows with every search run before in the same process;
+    each package's totals are read relative to its ``dse.evaluations``
+    before this search, so only this search's evaluations compare."""
     suite = list(jwl.TABLE_I)[:4]
     classes_j = (jcm.DataflowClass.GEMM, jcm.DataflowClass.SPMM,
                  jcm.DataflowClass.SPGEMM_OUTER)
@@ -273,7 +277,8 @@ def test_dse_search_bumps_the_same_counters_and_events():
             [e for e in evs if e["name"] == "incumbent_improved"],
             [e["args"]["candidates"] for e in evs
              if e["name"] == "eval_batch"],
-            [e["args"]["total"] for e in evs if e["name"] == "dse_evals"],
+            [e["args"]["total"] - before.get("dse.evaluations", 0.0)
+             for e in evs if e["name"] == "dse_evals"],
             res.evaluations))
     for counts, improved, *_ in out:
         for e in improved:
