@@ -107,16 +107,38 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    ``backend="subprocess"`` fleet (three child interpreters, telemetry
    only) must route and time every request as the in-process one does.
    The fleet's Chrome trace goes to ``chiprun_out/fleet_trace.json``.
+   3h. LM serving: olmoe-1b-7b (``repro_torch.configs``) at full width and
+   depth in bfloat16, initialised on the card from seed 0, serves 4
+   prompts of 128 tokens with 32 new tokens each through
+   ``serve.engine.greedy_generate`` (``s_max=160``): init, prefill and
+   decode-step ms (median after warm-up), generated tokens/s and peak
+   memory beside the step's bound (every weight read once at 3.35 TB/s);
+   every token in the vocabulary, and a second run gives the same tokens.
+   Then olmoe at full width with 2 layers in float32 (``capacity_factor
+   =16``): each decode step's logits within 5e-3 of ``forward``'s
+   (``tests/test_serve.py``'s MoE tolerance), and ``greedy_generate``
+   equal to ``greedy_generate_reference`` on 2 prompts of 32 tokens with
+   8 new ones (a position whose top-2 logit gap lies within the tolerance
+   is printed, not failed). Last, the MoE routing as the paper's SpMM:
+   the first block's ``moe_mlp`` on the 512 prompt tokens gives the
+   routing, ``routing_as_ell`` the (512 × 64) U_T C_E matrix at density
+   8/64, and ``ops.spmm_mirror`` multiplies it on the card by a (64 ×
+   2048) expert-summary matrix, "auto" (the sparse body) and
+   "reference", each within ``1e-4`` relative of float64 and the same
+   bits twice; ``schedule_single_kernel(aespa_equal4())`` places the
+   dispatch workload. Phase 2 holds the SpMM kernel at this launch shape
+   (a routing of the same shape from the seed).
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   paths of phases 3, 3c, 3d, 3e, 3f and 3g (each must be > 0; the counts
-   are set to 0 before each phase and read after it) and the numbers of
-   phase 2, whose launch shapes include the serving and fleet
-   schedules'.
+   paths of phases 3, 3c, 3d, 3e, 3f, 3g and 3h (each must be > 0; the
+   counts are set to 0 before each phase and read after it) and the
+   numbers of phase 2, whose launch shapes include the serving, fleet and
+   MoE routing ones.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import statistics
@@ -147,14 +169,22 @@ from repro_torch.kernels import spgemm_gustavson as gust_mod  # noqa: E402
 from repro_torch.kernels import spgemm_inner as inner_mod  # noqa: E402
 from repro_torch.kernels import spgemm_outer as outer_mod  # noqa: E402
 from repro_torch.kernels import spmm as spmm_mod  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.fleet import FaultPlan, FleetServer  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.serve import cluster  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
 from repro_torch.serve.router import Router  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the f32
 #: rate of the CUDA cores, the units the ported kernels compute on.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+#: The dense bf16 rate of the tensor cores (the LM's bf16 matmuls).
+BF16_FLOPS_PER_S = 989e12
 
 #: Tolerances of the JAX package's kernel tests (tests/test_kernels.py:
 #: f32 1e-4, bf16 2e-2), applied normwise: max |err| <= tol·max(1, max |ref|).
@@ -186,6 +216,15 @@ N_LANES = 8
 TENANTS = ("tenant_a", "tenant_b", "tenant_c")
 #: Phase 3g: three replicas, as ``examples/fleet_serve.py`` launches them.
 FLEET_REPLICAS = ("replica0", "replica1", "replica2")
+#: Phase 3h: the LM served at full width, its requests and the float32
+#: check (2 layers, 2 prompts of 32 tokens, 8 new ones) at
+#: tests/test_serve.py's MoE tolerance.
+LM_ARCH = "olmoe-1b-7b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 128, 32
+LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_NEW = 2, 2, 32, 8
+LM_TOL = 5e-3
+#: The device phase 3h runs on (a CPU rehearsal sets it to "cpu").
+LM_DEVICE = "cuda"
 #: The kernel bodies that run each dataflow class's partitions.
 BODIES = {
     DataflowClass.GEMM: ("gemm",),
@@ -1594,6 +1633,259 @@ def fleet(config, requests, operands, card_pairs, serve_wall_ms):
     return launches
 
 
+def synthetic_routing(t, e, k, gen):
+    """A top-``k`` routing of ``t`` tokens over ``e`` experts from random
+    router logits: (weights (t, k) float32, experts (t, k) int32), the
+    shape the MoE layer gives."""
+    logits = torch.randn((t, e), generator=gen, device=gen.device)
+    w, idx = torch.topk(logits, k, dim=-1, sorted=True)
+    return torch.softmax(w, dim=-1), idx.to(torch.int32)
+
+
+def routing_case(label, weights, idx, summaries):
+    """The SpMM launch of ``ops.spmm_mirror(routing_as_ell(weights, idx,
+    E), summaries)`` as a kernel case."""
+    r = lm_moe.routing_as_ell(weights, idx, summaries.shape[0])
+    return spmm_case(label, *ops.spmm_mirror_operands(r, summaries))
+
+
+def tree_bytes(tree) -> int:
+    leaves = []
+    lm._tree_map(leaves.append, tree)
+    return nbytes(*leaves)
+
+
+def prefill_flops(cfg, b, s) -> float:
+    """Operations of one prefill as the model runs it: the projections,
+    every (query, key) pair of the one-chunk attention, the expert FFNs
+    over every capacity slot, the router, and the last position's
+    logits."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    cap = max(8, int(s * cfg.experts_per_token * cfg.capacity_factor
+                     / cfg.n_experts))
+    proj = 2.0 * b * s * d * (2 * h * dh + 2 * kv * dh)
+    attn = 4.0 * b * s * s * h * dh
+    ffn = 2.0 * b * cfg.n_experts * cap * 3 * d * cfg.d_ff
+    router = 2.0 * b * s * d * cfg.n_experts
+    return (cfg.n_layers * (proj + attn + ffn + router)
+            + 2.0 * b * d * lm.padded_vocab(cfg))
+
+
+def serve_full_width(cfg):
+    """Phase 3h part 1: ``cfg`` at full width on the card; greedy
+    generation twice from the seed (the same tokens), with its init,
+    prefill and decode-step times, tokens/s and peak memory. Returns the
+    params and the prompt."""
+    model = build(cfg)
+    dev = torch.device(LM_DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t1) * 1e3
+    weight_bytes = tree_bytes(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    s_max = LM_PROMPT + LM_NEW
+
+    def generate():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = engine.greedy_generate(model, params, prompt, n_steps=LM_NEW,
+                                     s_max=s_max, device=dev)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t1) * 1e3
+
+    first, cold_ms = generate()
+    again, wall_ms = generate()
+    if tuple(first.shape) != (LM_BATCH, s_max) or not torch.equal(
+            first[:, :LM_PROMPT], prompt):
+        raise AssertionError(f"lm: output {tuple(first.shape)} does not "
+                             "extend the prompt")
+    if int(first.min()) < 0 or int(first.max()) >= cfg.vocab_size:
+        raise AssertionError("lm: a token outside the vocabulary")
+    if not torch.equal(first, again):
+        raise AssertionError("lm: two runs from the same seed gave "
+                             "different tokens")
+
+    # The prefill and the decode steps alone, on the same prompt and the
+    # tokens the run chose.
+    prefill = engine.make_prefill(model, with_cache=True)
+    step = engine.make_decode_step(model)
+    with torch.inference_mode():
+        cache0 = model.init_cache(LM_BATCH, s_max, device=dev)
+        prefill_ms = time_ms(lambda: prefill(params, cache0, prompt), 5)
+        _, cache = prefill(params, cache0, prompt)
+        del cache0
+        step_ms = []
+        for i in range(LM_NEW - 1):
+            tok = first[:, LM_PROMPT + i:LM_PROMPT + i + 1]
+            pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32,
+                             device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, cache = step(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32,
+                         device=dev)
+        tok = first[:, LM_PROMPT:LM_PROMPT + 1]
+        step_profile = profile_run(lambda: step(params, cache, tok, pos),
+                                   top=8)
+        del cache
+    peak = torch.cuda.max_memory_allocated()
+    bound_step_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    flops = prefill_flops(cfg, LM_BATCH, LM_PROMPT)
+    log(f"lm: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_token}, {cfg.dtype}, "
+        f"{weight_bytes / 1e9:.3f} GB of weights; {LM_BATCH} prompts of "
+        f"{LM_PROMPT} tokens, {LM_NEW} new each: the same tokens twice, "
+        "every one in the vocabulary")
+    log("lm measured: " + json.dumps({
+        "init_ms": init_ms, "generate_cold_ms": cold_ms,
+        "generate_ms": wall_ms, "prefill_ms": prefill_ms,
+        "decode_step_ms": statistics.median(step_ms[2:]),
+        "decode_step_ms_all": step_ms,
+        "tokens_per_s": LM_BATCH * LM_NEW / (wall_ms / 1e3),
+        "base_mb": base_mem / 2 ** 20,
+        "peak_mb_above_base": (peak - base_mem) / 2 ** 20,
+        "weight_bytes": weight_bytes, "step_bound_ms": bound_step_ms,
+        "prefill_flops": flops,
+        "prefill_bound_ms": max(bound_step_ms,
+                                flops / BF16_FLOPS_PER_S * 1e3)}))
+    log("profile lm decode step: " + json.dumps(step_profile))
+    return params, prompt
+
+
+def check_full_width_f32(cfg):
+    """Phase 3h part 2: ``cfg`` at full width with 2 layers in float32 and
+    room for every token: decode-step logits against ``forward``'s, and
+    ``greedy_generate`` against ``greedy_generate_reference``."""
+    cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+                              dtype="float32", capacity_factor=16.0)
+    model = build(cfg)
+    dev = torch.device(LM_DEVICE)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    s = LM_CHECK_PROMPT + LM_CHECK_NEW
+    toks = torch.randint(0, cfg.vocab_size, (LM_CHECK_BATCH, s),
+                         generator=gen, device=dev, dtype=torch.int32)
+    step = engine.make_decode_step(model)
+    worst = 0.0
+    with torch.inference_mode():
+        want, _ = model.forward(params, {"tokens": toks})
+        cache = model.init_cache(LM_CHECK_BATCH, s, device=dev)
+        for i in range(s):
+            pos = torch.full((LM_CHECK_BATCH,), i, dtype=torch.int32,
+                             device=dev)
+            got, cache = step(params, cache, toks[:, i:i + 1], pos)
+            w = want[:, i:i + 1]
+            # assert_allclose's rule at rtol = atol = LM_TOL.
+            err = float(((got - w).abs() / (1.0 + w.abs())).max())
+            worst = max(worst, err)
+            if err > LM_TOL:
+                raise AssertionError(f"lm f32: decode step {i}'s logits "
+                                     f"{err:.3e} from forward's")
+        del cache, want
+    prompt = toks[:, :LM_CHECK_PROMPT]
+    new = engine.greedy_generate(model, params, prompt, LM_CHECK_NEW, s,
+                                 device=dev)
+    old = engine.greedy_generate_reference(model, params, prompt,
+                                           LM_CHECK_NEW, s, device=dev)
+    ties = []
+    for r in range(LM_CHECK_BATCH):
+        diff = (new[r] != old[r]).nonzero()
+        if not len(diff):
+            continue
+        # The rows part at position j: the prefix before it is the same.
+        j = int(diff[0])
+        with torch.inference_mode():
+            lg, _ = model.forward(params, {"tokens": old[r:r + 1, :j]})
+        top = torch.topk(lg[0, -1, :cfg.vocab_size], 2).values
+        gap = float(top[0] - top[1])
+        if gap > LM_TOL * (1.0 + float(top[0].abs())):
+            raise AssertionError(f"lm f32: greedy_generate differs from the "
+                                 f"reference at row {r} position {j}, top-2 "
+                                 f"gap {gap:.3e}")
+        ties.append((r, j, gap))
+    log(f"lm f32: {cfg.name} at full width, {cfg.n_layers} layers: {s} "
+        f"decode steps' logits within {worst:.3e} of forward's (tol "
+        f"{LM_TOL}); greedy_generate equal to greedy_generate_reference on "
+        f"{LM_CHECK_BATCH} prompts of {LM_CHECK_PROMPT} + {LM_CHECK_NEW}"
+        + (f", but for near ties (row, position, top-2 gap) {ties}"
+           if ties else ""))
+
+
+def routing_spmm(cfg, params, prompt):
+    """Phase 3h part 3: the first block's MoE routing of the prompt as the
+    paper's U_T C_E matrix through the port's SpMM on the card, both
+    bodies, against float64. Returns the launches of the two calls."""
+    dev = torch.device(LM_DEVICE)
+    blk = lm._index(params["blocks"]["s0"], 0)
+    with torch.inference_mode():
+        x = lm_layers.embed(params["embed"], prompt, cfg)
+        positions = torch.arange(prompt.shape[1], device=dev)[None, :]
+        h = lm_layers.rmsnorm(x, blk["norm1"], cfg.norm_eps)
+        x = x + lm_layers.attention(blk["attn"], h, cfg, positions=positions)
+        h2 = lm_layers.rmsnorm(x, blk["norm2"], cfg.norm_eps)
+        _, (weights, idx) = lm_moe.moe_mlp(blk["ffn"], h2, cfg)
+    t, e = weights.shape[0], cfg.n_experts
+    r = lm_moe.routing_as_ell(weights, idx, e)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    summaries = torch.randn((e, cfg.d_model), generator=gen, device=dev)
+    reset_counts()
+    outs = {m: ops.spmm_mirror(r, summaries, method=m)
+            for m in ("auto", "reference")}
+    launches = counts()
+    want = ell.ell_to_dense(r).double() @ summaries.double()
+    scale = float(want.abs().max())
+    rels = {}
+    for m, out in outs.items():
+        if tuple(out.shape) != (t, cfg.d_model) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"lm routing {m}: bad output "
+                                 f"{tuple(out.shape)}")
+        rels[m] = float((out.double() - want).abs().max()) / scale
+        if rels[m] > TOL["float32"]:
+            raise AssertionError(f"lm routing {m}: {rels[m]:.3e} from "
+                                 "float64")
+        if not torch.equal(out, ops.spmm_mirror(r, summaries, method=m)):
+            raise AssertionError(f"lm routing {m}: two runs differ")
+    density = float(r.density())
+    w = Workload("moe_dispatch", "LM", t, e, cfg.d_model, density, 1.0)
+    sched = scheduler.schedule_single_kernel(dse.aespa_equal4(), w)
+    classes = sorted({p.cls.value for p in sched.partitions})
+    log(f"lm routing: ({t} x {e}) U_T C_E matrix, density {density:.4f}, "
+        f"cap {r.cap}; spmm_mirror by a ({e} x {cfg.d_model}) matrix on the "
+        f"card, rel err auto {rels['auto']:.3e}, reference "
+        f"{rels['reference']:.3e}, the same bits twice; launches "
+        f"{launches}; aespa_equal4 places the dispatch on {classes}, "
+        f"modelled {sched.report.runtime_s * 1e9:.0f} ns")
+    return launches
+
+
+def lm_serving(cfg=None):
+    """Phase 3h: LM serving (parts 1-3). Returns the launches of the
+    routing SpMM, both of whose bodies must have run."""
+    cfg = cfg or get_config(LM_ARCH)
+    params, prompt = serve_full_width(cfg)
+    launches = routing_spmm(cfg, params, prompt)
+    del params
+    torch.cuda.empty_cache()
+    check_full_width_f32(cfg)
+    torch.cuda.empty_cache()
+    if not all(launches[k] for k in BODIES[DataflowClass.SPMM]):
+        raise AssertionError(f"lm routing: a SpMM body never launched: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1701,6 +1993,18 @@ def main() -> int:
                      [pp.partition for pp in asg.placed])
                     for ro, rid, asg in fleet_assignments(fleet_plan)]
     redesigned = []
+    # Phase 3h's MoE routing: a (T x E) top-k routing of the same shape.
+    lm_cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    routing = routing_case(
+        f"lm routing {LM_BATCH * LM_PROMPT}x{lm_cfg.n_experts}"
+        f"x{lm_cfg.d_model}",
+        *synthetic_routing(LM_BATCH * LM_PROMPT, lm_cfg.n_experts,
+                           lm_cfg.experts_per_token, gen),
+        torch.randn((lm_cfg.n_experts, lm_cfg.d_model), generator=gen,
+                    device="cuda"))
+    rows.append(routing.check(reps=5))
+    redesigned.append((routing, rows[-1]))
     for label, a_d, b_d, partitions in launch_sets:
         for case in partition_cases(label, a_d, b_d, partitions, seen):
             rows.append(case.check(reps=5))
@@ -1834,10 +2138,15 @@ def main() -> int:
                            serve_wall_ms)
     log(f"phase 3g fleet: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 3h: LM serving, MoE routing through the SpMM -------------
+    t0 = time.perf_counter()
+    lm_launches = lm_serving()
+    log(f"phase 3h LM serving: {time.perf_counter() - t0:.1f} s")
+
     # ---- phase 4: the kernels line ---------------------------------------
     launches = {k: single_launches[k] + many_launches[k] + opt_launches[k]
                 + stream_launches[k] + serve_launches[k] + fleet_launches[k]
-                for k in REPLACES}
+                + lm_launches[k] for k in REPLACES}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]

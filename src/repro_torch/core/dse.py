@@ -31,6 +31,7 @@ import dataclasses
 import itertools
 import math
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,6 +61,14 @@ _OBJECTIVES = ("edp", "runtime", "energy")
 #: Geometric mean with a 1e-30 floor. Lives in ``costmodel`` so the
 #: batched evaluator shares the exact (bit-for-bit) accumulation.
 geomean = cm.geomean
+
+
+def _deprecate_max_workers() -> None:
+    warnings.warn(
+        "max_workers= is deprecated and ignored: the DSE scores every "
+        "candidate in one vectorized numpy pass "
+        "(costmodel.evaluate_config_batch); the thread pool is gone.",
+        DeprecationWarning, stacklevel=3)
 
 
 # ------------------------------------------------------------- evaluation
@@ -323,9 +332,11 @@ def search(
     step: float = 0.25,
     classes: Tuple[DataflowClass, ...] = CLASSES,
     objective: str = "edp",
+    verbose: bool = False,
     fracs: Sequence[float] = SCHED_FRACS,
     refine: bool = False,
     refine_fractions: bool = True,
+    max_workers: Optional[int] = None,
     with_baselines: bool = False,
     with_pareto: bool = False,
     hbm_bw_grid: Optional[Sequence[float]] = None,
@@ -350,7 +361,9 @@ def search(
     fine fraction grid). ``objective`` is one of ``edp`` / ``runtime`` /
     ``energy``. ``with_baselines`` attaches Fig 10/13-style ratios versus
     the homogeneous baselines; ``with_pareto`` attaches the non-dominated
-    front of every point the search evaluated.
+    front of every point the search evaluated. ``verbose`` prints the
+    incumbent after each stage. ``max_workers`` is deprecated and ignored
+    (kept so calls written for ``repro`` bind the same parameters).
 
     Raises :class:`ValueError` when ``step`` does not divide 1, a memory
     grid is empty or non-positive, or the sweep has no feasible candidate
@@ -361,6 +374,8 @@ def search(
         raise ValueError(
             f"unknown objective {objective!r}; one of {_OBJECTIVES}")
     _simplex_steps(step)  # validate before any work
+    if max_workers is not None:
+        _deprecate_max_workers()
     hbm_bw = hwdb.HBM_BW if hbm_bw is None else hbm_bw
     bw_grid, scratch_grid = _memory_grids(hbm_bw, hbm_bw_grid,
                                           scratchpad_grid)
@@ -443,6 +458,10 @@ def search(
             cat="dse", stage="coarse", objective=objective,
             score=obj(best), fractions=dict(
                 (c.value, f) for c, f in best.fractions))
+    if verbose:
+        print(f"DSE coarse best: {dict(best.fractions)} "
+              f"bw={best.hbm_bw:.3g} scratch={best.scratchpad_bytes:.3g} "
+              f"-> {objective}={obj(best):.3e}")
 
     # Stage 2: cost-ranked local refinement until converged — half-step
     # fraction transfers, then one-notch moves per memory axis.
@@ -466,6 +485,11 @@ def search(
                             "incumbent_improved", pid=_trace_mod.PID_HOST,
                             tid="dse", cat="dse", stage="refine",
                             objective=objective, score=obj(p))
+            if verbose and improved:
+                print(f"DSE refined: {dict(best.fractions)} "
+                      f"bw={best.hbm_bw:.3g} "
+                      f"scratch={best.scratchpad_bytes:.3g} "
+                      f"-> {objective}={obj(best):.3e}")
 
     fractions = best.fractions_dict
     config = cm.aespa_from_fractions(fractions, name="aespa_dse",
@@ -592,6 +616,7 @@ def co_search(
     policies: Optional[Sequence[str]] = None,
     objective: str = "makespan",
     arrival_gap_factor: float = 0.25,
+    max_workers: Optional[int] = None,
     verbose: bool = False,
     hbm_bw_grid: Optional[Sequence[float]] = None,
     scratchpad_grid: Optional[Sequence[float]] = None,
@@ -607,6 +632,7 @@ def co_search(
     than an array sweep, but every per-(cluster, workload) placement cost
     inside it is memoized (``scheduler._best_on_cluster``), so the joint
     sweep amortizes across candidates that share memory provisioning.
+    ``max_workers`` is deprecated and ignored.
 
     ``objective``: ``makespan`` (offline throughput), ``mean_wait`` or
     ``turnaround`` (online latency). Raises :class:`ValueError` on an
@@ -614,6 +640,8 @@ def co_search(
     non-positive memory grid, or an empty sweep.
     """
     _simplex_steps(step)
+    if max_workers is not None:
+        _deprecate_max_workers()
     hbm_bw = hwdb.HBM_BW if hbm_bw is None else hbm_bw
     bw_grid, scratch_grid = _memory_grids(hbm_bw, hbm_bw_grid,
                                           scratchpad_grid)

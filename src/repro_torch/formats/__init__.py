@@ -1,7 +1,6 @@
 """Compression formats of the port: the CCF taxonomy, ELL fibers on
-tensors and the format converters, re-exported as ``repro.formats`` does
-(``ell_onehot_expand``, a TPU expansion helper, has no counterpart), except
-that the function ``convert`` stays in its module:
+tensors and the format converters, re-exported as ``repro.formats`` does,
+except that the function ``convert`` stays in its module:
 ``repro_torch.formats.convert`` is the module."""
 from repro_torch.formats.taxonomy import (
     A_UKCM,
@@ -26,6 +25,7 @@ from repro_torch.formats.ell import (
     bucket_capacity,
     check_capacity,
     dense_to_ell,
+    ell_onehot_expand,
     ell_to_dense,
     pad_capacity,
     required_capacity,
@@ -45,7 +45,7 @@ __all__ = [
     "DataflowClass", "MatrixCCF", "PARALLELISM_BOUND", "REQUIRED_FORMATS",
     "classify", "PAD_ID", "EllMatrix", "block_chunk_counts",
     "block_window_nnz", "bucket_capacity", "check_capacity",
-    "dense_to_ell", "ell_to_dense", "pad_capacity",
+    "dense_to_ell", "ell_onehot_expand", "ell_to_dense", "pad_capacity",
     "required_capacity", "tile_occupancy", "conversion_bytes", "convert",
     "major_axis_for", "to_dense", "to_format",
 ]

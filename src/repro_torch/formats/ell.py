@@ -131,6 +131,21 @@ def ell_to_dense(e: EllMatrix) -> torch.Tensor:
     return out.T if e.major_axis == 1 else out
 
 
+def ell_onehot_expand(ids: torch.Tensor, vals: torch.Tensor,
+                      minor_size: int) -> torch.Tensor:
+    """One-hot expansion of compressed fibers to dense: ``ids``/``vals``
+    ``(f, cap)`` -> ``(f, minor_size)`` in ``vals``' dtype, one masked
+    scatter-add. Ids may come in any order and may repeat (their values
+    add); ``PAD_ID`` and ids outside ``[0, minor_size)`` contribute
+    nothing, as in the JAX package's scatter lowering."""
+    keep = (ids >= 0) & (ids < minor_size)
+    safe = torch.where(keep, ids, minor_size).long()
+    out = torch.zeros((ids.shape[0], minor_size + 1), dtype=vals.dtype,
+                      device=vals.device)
+    out.scatter_add_(1, safe, torch.where(keep, vals, 0).to(vals.dtype))
+    return out[:, :minor_size]
+
+
 def check_capacity(dense, major_axis: int, cap: int) -> bool:
     """True iff every fiber of ``dense`` fits within ``cap`` nonzeros."""
     work = torch.as_tensor(dense)

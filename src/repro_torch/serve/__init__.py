@@ -1,7 +1,7 @@
 """Serving on the port: the multi-tenant ``ClusterServer`` over the
-heterogeneous cluster (``repro_torch.serve.cluster``) and the tenant
-router of a fleet of them (``repro_torch.serve.router``). The JAX
-package's LM engine (``serve.engine``) is not ported yet."""
+heterogeneous cluster (``repro_torch.serve.cluster``), the tenant router
+of a fleet of them (``repro_torch.serve.router``) and the LM engine
+(``repro_torch.serve.engine``: prefill and greedy decode)."""
 from repro_torch.serve.cluster import (
     ClusterServer,
     Request,
@@ -16,6 +16,12 @@ from repro_torch.serve.cluster import (
     trace_from_json,
     trace_to_json,
 )
+from repro_torch.serve.engine import (
+    ServeConfig,
+    greedy_generate,
+    make_decode_step,
+    make_prefill,
+)
 from repro_torch.serve.router import (
     HashRing,
     Router,
@@ -24,6 +30,7 @@ from repro_torch.serve.router import (
 )
 
 __all__ = [
+    "ServeConfig", "greedy_generate", "make_decode_step", "make_prefill",
     "ClusterServer", "Request", "RequestResult", "ServeResult",
     "ServerReport", "deploy_from_dse", "generate_trace", "load_trace",
     "save_trace", "serve_result_to_json", "trace_from_json", "trace_to_json",

@@ -243,3 +243,51 @@ def test_schedule_cache_info_counts_memo_hits():
     assert (info["hits"], info["misses"], info["currsize"]) == (1, 1, 1)
     assert info["maxsize"] == jsched.schedule_cache_info()[
         "single_kernel_memo"]["maxsize"]
+
+
+@pytest.mark.parametrize("name", ["search", "co_search"])
+def test_search_signatures_match_jax(name):
+    """Same parameter names in the same order as JAX's, so a call written
+    for ``repro`` binds the same parameters in the port, by keyword or by
+    position."""
+    import inspect
+
+    jparams = list(inspect.signature(getattr(jdse, name)).parameters)
+    tparams = list(inspect.signature(getattr(tdse, name)).parameters)
+    assert tparams == jparams
+
+
+def test_search_and_co_search_warn_on_max_workers():
+    """The port's twin of ``tests/test_dse.py``'s
+    ``test_search_and_co_search_warn_on_max_workers``."""
+    jsuite, tsuite = suites("small")
+    with pytest.warns(DeprecationWarning, match="max_workers"):
+        tdse.search(suite=tsuite, step=0.5, max_workers=4)
+    with pytest.warns(DeprecationWarning, match="max_workers"):
+        tdse.co_search(tasks=tsuite, step=0.5,
+                       classes=(TClass.GEMM, TClass.SPGEMM_INNER),
+                       policies=("lpt",), max_workers=2)
+    assert not hasattr(tdse, "_default_workers")
+    assert not hasattr(tdse, "ThreadPoolExecutor")
+
+
+def test_verbose_prints_match_jax(capsys):
+    """``verbose=True`` prints the same progress lines in both packages:
+    the coarse incumbent and each refinement of ``search``, and each new
+    best of ``co_search``."""
+    from repro.formats.taxonomy import DataflowClass as JClass
+
+    jsuite, tsuite = suites("small")
+    jdse.search(suite=jsuite, step=0.5, refine_fractions=True,
+                verbose=True)
+    jdse.co_search(tasks=jsuite, step=0.5,
+                   classes=(JClass.GEMM, JClass.SPGEMM_INNER),
+                   policies=("lpt", "sjf"), verbose=True)
+    want = capsys.readouterr().out
+    tdse.search(suite=tsuite, step=0.5, refine_fractions=True, verbose=True)
+    tdse.co_search(tasks=tsuite, step=0.5,
+                   classes=(TClass.GEMM, TClass.SPGEMM_INNER),
+                   policies=("lpt", "sjf"), verbose=True)
+    got = capsys.readouterr().out
+    assert "DSE coarse best" in want and "co-DSE best so far" in want
+    assert got == want

@@ -284,17 +284,16 @@ def test_convert_strict_raises_like_jax():
 
 
 def test_package_surface_re_exports():
-    """``repro_torch``'s ``__init__`` files re-export what ``repro``'s do
-    (bar the TPU-only names), and a module stays a module where ``repro``
-    re-exports a function of the same name over it."""
+    """``repro_torch``'s ``__init__`` files re-export what ``repro``'s do,
+    and a module stays a module where ``repro`` re-exports a function of
+    the same name over it."""
     import repro.formats as jformats
     import repro_torch.core as tcore
     import repro_torch.formats as tformats
     import repro_torch.kernels as tkernels
     from repro_torch.core import execute_schedule  # noqa: F401
 
-    assert set(jformats.__all__) - set(tformats.__all__) == {
-        "ell_onehot_expand"}
+    assert set(jformats.__all__) - set(tformats.__all__) == set()
     for name in tformats.__all__:
         assert hasattr(tformats, name), name
     for name in tcore.__all__:
@@ -309,3 +308,37 @@ def test_package_surface_re_exports():
         assert getattr(import_module(f"repro_torch.{pkg}"), mod) is \
             import_module(name), name
     assert tkernels.DISPATCH is tkernels.ops.DISPATCH
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "repeated"])
+def test_ell_onehot_expand_matches_jax(case):
+    """``ell_onehot_expand`` against JAX's on an ``EllMatrix``'s sorted
+    fibers (``tests/test_formats.py``'s ``test_onehot_expand_matches_dense``),
+    on hand-built unsorted ids (``tests/test_expand.py``'s
+    ``test_ell_onehot_expand_accepts_unsorted_ids``), and on ids that
+    repeat within a fiber or fall outside ``[0, minor_size)``."""
+    import repro.formats as jformats
+    import repro_torch.formats as tformats
+
+    rng = np.random.default_rng(3)
+    if case == "sorted":
+        d = sparse(rng, 6, 24, 0.4)
+        e = jell.dense_to_ell(jnp.asarray(d), 0, 24)
+        ids, vals, minor = np.array(e.ids), np.array(e.vals), 24
+    elif case == "unsorted":
+        ids = np.asarray([[5, 2, 7, jell.PAD_ID]], np.int32)
+        vals = np.asarray([[1.0, 2.0, 3.0, 4.0]], np.float32)
+        minor = 8
+    else:
+        ids = rng.integers(-1, 12, size=(5, 9)).astype(np.int32)
+        ids[0, :3] = 4
+        vals = rng.standard_normal((5, 9)).astype(np.float32)
+        minor = 10
+    want = np.asarray(jformats.ell_onehot_expand(
+        jnp.asarray(ids), jnp.asarray(vals), minor))
+    got = tformats.ell_onehot_expand(torch.from_numpy(ids),
+                                     torch.from_numpy(vals), minor)
+    assert got.shape == (ids.shape[0], minor) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    if case == "sorted":
+        np.testing.assert_allclose(got.numpy(), d, rtol=1e-6, atol=1e-6)

@@ -326,6 +326,32 @@ def test_entry_points_default_to_the_card():
         tops.resolve_device()
     assert tops.resolve_device("cpu") == torch.device("cpu")
 
+    # The LM zoo and its serving engine.
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build, params_from_numpy
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import (
+        greedy_generate,
+        greedy_generate_reference,
+    )
+
+    model = build(get_reduced("qwen1.5-0.5b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init()
+    params = model.init(device="cpu")
+    tree = T._tree_map(lambda t: t.numpy(), params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree, model.cfg)
+    assert params_from_numpy(tree, model.cfg, device="cpu")[
+        "embed"]["tok"].device == torch.device("cpu")
+    prompt = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        greedy_generate(model, params, prompt, n_steps=2, s_max=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        greedy_generate_reference(model, params, prompt, n_steps=2, s_max=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(1, 8)
+
 
 def test_port_imports_neither_jax_nor_repro():
     code = (
