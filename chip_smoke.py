@@ -128,9 +128,28 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    bits twice; ``schedule_single_kernel(aespa_equal4())`` places the
    dispatch workload. Phase 2 holds the SpMM kernel at this launch shape
    (a routing of the same shape from the seed).
+   3i. LM serving of the other families, each at full width and depth in
+   bfloat16, initialised on the card from seed 0, with the same numbers
+   as phase 3h (init, prefill or encode, decode-step ms, tokens/s, peak
+   memory, the step's bound, a profile of one decode step) and the same
+   tokens twice: recurrentgemma-2b (RG-LRU and local attention) on 4
+   prompts of 2048 tokens with 32 new each through ``greedy_generate``
+   (``s_max=2080``: decoding runs past the 2048-token window), every token
+   in the vocabulary; mamba2-370m (SSD) on 4 prompts of 512 tokens (two
+   SSD chunks) with 32 new each; whisper-base (enc-dec) on frames (4,
+   1500, 512) from seed 2: ``init_cache(4, 64, enc_len=1500)``,
+   ``prefill_encdec_cache``, then 4-token prompts and 60 greedy tokens
+   through ``make_decode_step``. Then the float32 checks at full width:
+   recurrentgemma with 3 layers and a window of 16 (2 prompts of 32 + 8),
+   mamba2 with 2 layers (2 prompts of 512 + 8), each decode step's logits
+   within 5e-3 of ``forward``'s and ``greedy_generate`` equal to
+   ``greedy_generate_reference`` (near ties printed, as in phase 3h);
+   whisper at full depth on frames (2, 1500, 512), each decode step after
+   ``prefill_encdec_cache`` within 3e-3 of ``forward(tokens, frames)``.
+   The path launches none of the port's kernels.
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   paths of phases 3, 3c, 3d, 3e, 3f, 3g and 3h (each must be > 0; the
-   counts are set to 0 before each phase and read after it) and the
+   paths of phases 3, 3c, 3d, 3e, 3f, 3g, 3h and 3i (each must be > 0;
+   the counts are set to 0 before each phase and read after it) and the
    numbers of phase 2, whose launch shapes include the serving, fleet and
    MoE routing ones.
 
@@ -223,7 +242,27 @@ LM_ARCH = "olmoe-1b-7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 128, 32
 LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_NEW = 2, 2, 32, 8
 LM_TOL = 5e-3
-#: The device phase 3h runs on (a CPU rehearsal sets it to "cpu").
+#: Phase 3i: the SSD and RG-LRU archs served at full width and depth,
+#: (batch, prompt tokens, new tokens), and their float32 checks at full
+#: width: (overrides, batch, prompt tokens, new tokens) at
+#: tests/test_serve.py's SSD and RG-LRU tolerance. recurrentgemma's 2048
+#: prompt tokens fill its local layers' window, so decoding runs past it;
+#: its check keeps one (rec, rec, local) period with a window of 16, which
+#: binds. mamba2's 512 are two SSD chunks of 256; its check's forward over
+#: 520 tokens takes the gcd chunking (65 chunks of 8).
+FAMILY_ARCHS = {"recurrentgemma-2b": (4, 2048, 32), "mamba2-370m": (4, 512, 32)}
+FAMILY_CHECKS = {
+    "recurrentgemma-2b": ({"n_layers": 3, "sliding_window": 16}, 2, 32, 8),
+    "mamba2-370m": ({"n_layers": 2}, 2, 512, 8),
+}
+#: Phase 3i's enc-dec arch: (batch, encoder frames, prompt tokens, new
+#: tokens). 1500 frames are Whisper's 30-s encoder context; its float32
+#: check (full depth) decodes 2 rows of 40 tokens over 1500 frames against
+#: forward at tests/test_serve.py's enc-dec tolerance.
+ENCDEC_ARCH = "whisper-base"
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1500, 4, 60
+ENCDEC_CHECK_BATCH, ENCDEC_CHECK_TOKENS, ENCDEC_TOL = 2, 40, 3e-3
+#: The device phases 3h and 3i run on (a CPU rehearsal sets it to "cpu").
 LM_DEVICE = "cuda"
 #: The kernel bodies that run each dataflow class's partitions.
 BODIES = {
@@ -1671,12 +1710,49 @@ def prefill_flops(cfg, b, s) -> float:
             + 2.0 * b * d * lm.padded_vocab(cfg))
 
 
-def serve_full_width(cfg):
-    """Phase 3h part 1: ``cfg`` at full width on the card; greedy
-    generation twice from the seed (the same tokens), with its init,
-    prefill and decode-step times, tokens/s and peak memory. Returns the
-    params and the prompt."""
-    model = build(cfg)
+def block_flops(tree, tokens: int) -> float:
+    """2 operations per weight per token over every block of ``tree``
+    (attention scores and the scans not counted)."""
+    leaves = []
+    lm._tree_map(leaves.append, {k: tree[k] for k in ("blocks", "tail")})
+    return 2.0 * tokens * sum(t.numel() for t in leaves)
+
+
+def family_prefill_flops(cfg, b, s):
+    """Operations of one phase 3i prefill: 2 per block weight per token,
+    every (query, key) pair of each attention layer (the flash chunks run
+    whole, masked or not), and the last position's logits; the SSD and
+    RG-LRU scans not counted. Returns a function of the params."""
+    n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    attn = 4.0 * n_attn * b * s * s * cfg.n_heads * cfg.d_head
+    logits = 2.0 * b * cfg.d_model * lm.padded_vocab(cfg)
+    return lambda params: block_flops(params, b * s) + attn + logits
+
+
+def steps_ms(step, params, cache, tokens, start, n):
+    """Host ms of decode steps ``start`` .. ``start + n - 1``, fed the
+    tokens the run chose (``tokens[:, i]`` at position ``i``), each ending
+    in a synchronize; then one more step under the profiler. Returns (the
+    step times, the profile)."""
+    b, dev = tokens.shape[0], tokens.device
+    times = []
+    with torch.inference_mode():
+        for i in range(start, start + n):
+            pos = torch.full((b,), i, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, cache = step(params, cache, tokens[:, i:i + 1], pos)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        pos = torch.full((b,), start, dtype=torch.int32, device=dev)
+        profile = profile_run(
+            lambda: step(params, cache, tokens[:, start:start + 1], pos),
+            top=8)
+    return times, profile
+
+
+def init_on_card(model):
+    """Params from seed 0 on the card: (params, init ms, base bytes)."""
     dev = torch.device(LM_DEVICE)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1686,140 +1762,157 @@ def serve_full_width(cfg):
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     torch.cuda.synchronize()
-    init_ms = (time.perf_counter() - t1) * 1e3
+    return params, (time.perf_counter() - t1) * 1e3, base_mem
+
+
+def check_generated(tag, cfg, first, again, prompt, total):
+    """Both runs the same tokens, extending the prompt, every one in the
+    vocabulary."""
+    b, s = prompt.shape
+    if tuple(first.shape) != (b, total) or not torch.equal(
+            first[:, :s], prompt):
+        raise AssertionError(f"{tag}: output {tuple(first.shape)} does not "
+                             "extend the prompt")
+    if int(first.min()) < 0 or int(first.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{tag}: a token outside the vocabulary")
+    if not torch.equal(first, again):
+        raise AssertionError(f"{tag}: two runs from the same seed gave "
+                             "different tokens")
+
+
+def serve_full_width(cfg, batch, prompt_len, new, flops):
+    """Phase 3h part 1 and phase 3i: ``cfg`` at full width on the card;
+    greedy generation of ``new`` tokens after ``batch`` prompts of
+    ``prompt_len``, twice from the seed (the same tokens), with its init,
+    prefill and decode-step times, tokens/s and peak memory beside the
+    step's bound (every weight read once). ``flops(params)``: the
+    prefill's operations. Returns the params and the prompt."""
+    model = build(cfg)
+    dev = torch.device(LM_DEVICE)
+    params, init_ms, base_mem = init_on_card(model)
     weight_bytes = tree_bytes(params)
     gen = torch.Generator(device=dev).manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
-    s_max = LM_PROMPT + LM_NEW
+    s_max = prompt_len + new
 
     def generate():
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = engine.greedy_generate(model, params, prompt, n_steps=LM_NEW,
+        out = engine.greedy_generate(model, params, prompt, n_steps=new,
                                      s_max=s_max, device=dev)
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t1) * 1e3
 
     first, cold_ms = generate()
     again, wall_ms = generate()
-    if tuple(first.shape) != (LM_BATCH, s_max) or not torch.equal(
-            first[:, :LM_PROMPT], prompt):
-        raise AssertionError(f"lm: output {tuple(first.shape)} does not "
-                             "extend the prompt")
-    if int(first.min()) < 0 or int(first.max()) >= cfg.vocab_size:
-        raise AssertionError("lm: a token outside the vocabulary")
-    if not torch.equal(first, again):
-        raise AssertionError("lm: two runs from the same seed gave "
-                             "different tokens")
+    check_generated(f"lm {cfg.name}", cfg, first, again, prompt, s_max)
 
     # The prefill and the decode steps alone, on the same prompt and the
     # tokens the run chose.
     prefill = engine.make_prefill(model, with_cache=True)
-    step = engine.make_decode_step(model)
     with torch.inference_mode():
-        cache0 = model.init_cache(LM_BATCH, s_max, device=dev)
+        cache0 = model.init_cache(batch, s_max, device=dev)
         prefill_ms = time_ms(lambda: prefill(params, cache0, prompt), 5)
         _, cache = prefill(params, cache0, prompt)
         del cache0
-        step_ms = []
-        for i in range(LM_NEW - 1):
-            tok = first[:, LM_PROMPT + i:LM_PROMPT + i + 1]
-            pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32,
-                             device=dev)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            _, cache = step(params, cache, tok, pos)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t1) * 1e3)
-        pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32,
-                         device=dev)
-        tok = first[:, LM_PROMPT:LM_PROMPT + 1]
-        step_profile = profile_run(lambda: step(params, cache, tok, pos),
-                                   top=8)
-        del cache
+    step_ms, step_profile = steps_ms(engine.make_decode_step(model), params,
+                                     cache, first, prompt_len, new - 1)
+    del cache
     peak = torch.cuda.max_memory_allocated()
     bound_step_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
-    flops = prefill_flops(cfg, LM_BATCH, LM_PROMPT)
+    flops = flops(params)
     log(f"lm: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_experts} experts top-{cfg.experts_per_token}, {cfg.dtype}, "
-        f"{weight_bytes / 1e9:.3f} GB of weights; {LM_BATCH} prompts of "
-        f"{LM_PROMPT} tokens, {LM_NEW} new each: the same tokens twice, "
-        "every one in the vocabulary")
+        f"{cfg.dtype}, {weight_bytes / 1e9:.3f} GB of weights; {batch} "
+        f"prompts of {prompt_len} tokens, {new} new each: the same tokens "
+        "twice, every one in the vocabulary")
     log("lm measured: " + json.dumps({
-        "init_ms": init_ms, "generate_cold_ms": cold_ms,
+        "arch": cfg.name, "init_ms": init_ms, "generate_cold_ms": cold_ms,
         "generate_ms": wall_ms, "prefill_ms": prefill_ms,
         "decode_step_ms": statistics.median(step_ms[2:]),
         "decode_step_ms_all": step_ms,
-        "tokens_per_s": LM_BATCH * LM_NEW / (wall_ms / 1e3),
+        "tokens_per_s": batch * new / (wall_ms / 1e3),
         "base_mb": base_mem / 2 ** 20,
         "peak_mb_above_base": (peak - base_mem) / 2 ** 20,
         "weight_bytes": weight_bytes, "step_bound_ms": bound_step_ms,
         "prefill_flops": flops,
         "prefill_bound_ms": max(bound_step_ms,
                                 flops / BF16_FLOPS_PER_S * 1e3)}))
-    log("profile lm decode step: " + json.dumps(step_profile))
+    log(f"profile lm {cfg.name} decode step: " + json.dumps(step_profile))
     return params, prompt
 
 
-def check_full_width_f32(cfg):
-    """Phase 3h part 2: ``cfg`` at full width with 2 layers in float32 and
-    room for every token: decode-step logits against ``forward``'s, and
-    ``greedy_generate`` against ``greedy_generate_reference``."""
-    cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
-                              dtype="float32", capacity_factor=16.0)
+def near_tie(model, params, row, j, tol):
+    """The top-2 logit gap of ``forward`` at the last of ``row[:j]``, if
+    it lies within ``tol`` (a tie greedy decoding may break either way);
+    else raise."""
+    with torch.inference_mode():
+        lg, _ = model.forward(params, {"tokens": row[None, :j]})
+    top = torch.topk(lg[0, -1, :model.cfg.vocab_size], 2).values
+    gap = float(top[0] - top[1])
+    if gap > tol * (1.0 + float(top[0].abs())):
+        raise AssertionError(f"lm f32 {model.cfg.name}: greedy_generate "
+                             f"differs from the reference at position {j}, "
+                             f"top-2 gap {gap:.3e}")
+    return gap
+
+
+def check_decode(tag, step, params, cache, toks, want, tol) -> float:
+    """Each decode step's logits against ``want`` (``forward``'s) by
+    assert_allclose's rule at rtol = atol = ``tol``; returns the worst."""
+    b, worst = toks.shape[0], 0.0
+    with torch.inference_mode():
+        for i in range(toks.shape[1]):
+            pos = torch.full((b,), i, dtype=torch.int32, device=toks.device)
+            got, cache = step(params, cache, toks[:, i:i + 1], pos)
+            w = want[:, i:i + 1]
+            err = float(((got - w).abs() / (1.0 + w.abs())).max())
+            worst = max(worst, err)
+            if err > tol:
+                raise AssertionError(f"{tag}: decode step {i}'s logits "
+                                     f"{err:.3e} from forward's")
+    return worst
+
+
+def check_full_width_f32(cfg, overrides, batch, prompt_len, new, tol):
+    """Phase 3h part 2 and phase 3i: ``cfg`` at full width in float32 with
+    ``overrides`` (its depth cut) and room for every token: decode-step
+    logits against ``forward``'s, and ``greedy_generate`` against
+    ``greedy_generate_reference``."""
+    cfg = dataclasses.replace(cfg, dtype="float32", **overrides)
     model = build(cfg)
     dev = torch.device(LM_DEVICE)
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
-    s = LM_CHECK_PROMPT + LM_CHECK_NEW
-    toks = torch.randint(0, cfg.vocab_size, (LM_CHECK_BATCH, s),
-                         generator=gen, device=dev, dtype=torch.int32)
-    step = engine.make_decode_step(model)
-    worst = 0.0
+    s = prompt_len + new
+    toks = torch.randint(0, cfg.vocab_size, (batch, s), generator=gen,
+                         device=dev, dtype=torch.int32)
     with torch.inference_mode():
         want, _ = model.forward(params, {"tokens": toks})
-        cache = model.init_cache(LM_CHECK_BATCH, s, device=dev)
-        for i in range(s):
-            pos = torch.full((LM_CHECK_BATCH,), i, dtype=torch.int32,
-                             device=dev)
-            got, cache = step(params, cache, toks[:, i:i + 1], pos)
-            w = want[:, i:i + 1]
-            # assert_allclose's rule at rtol = atol = LM_TOL.
-            err = float(((got - w).abs() / (1.0 + w.abs())).max())
-            worst = max(worst, err)
-            if err > LM_TOL:
-                raise AssertionError(f"lm f32: decode step {i}'s logits "
-                                     f"{err:.3e} from forward's")
-        del cache, want
-    prompt = toks[:, :LM_CHECK_PROMPT]
-    new = engine.greedy_generate(model, params, prompt, LM_CHECK_NEW, s,
-                                 device=dev)
-    old = engine.greedy_generate_reference(model, params, prompt,
-                                           LM_CHECK_NEW, s, device=dev)
+        worst = check_decode(f"lm f32 {cfg.name}",
+                             engine.make_decode_step(model), params,
+                             model.init_cache(batch, s, device=dev), toks,
+                             want, tol)
+        del want
+    prompt = toks[:, :prompt_len]
+    new_toks = engine.greedy_generate(model, params, prompt, new, s,
+                                      device=dev)
+    old = engine.greedy_generate_reference(model, params, prompt, new, s,
+                                           device=dev)
     ties = []
-    for r in range(LM_CHECK_BATCH):
-        diff = (new[r] != old[r]).nonzero()
-        if not len(diff):
-            continue
-        # The rows part at position j: the prefix before it is the same.
-        j = int(diff[0])
-        with torch.inference_mode():
-            lg, _ = model.forward(params, {"tokens": old[r:r + 1, :j]})
-        top = torch.topk(lg[0, -1, :cfg.vocab_size], 2).values
-        gap = float(top[0] - top[1])
-        if gap > LM_TOL * (1.0 + float(top[0].abs())):
-            raise AssertionError(f"lm f32: greedy_generate differs from the "
-                                 f"reference at row {r} position {j}, top-2 "
-                                 f"gap {gap:.3e}")
-        ties.append((r, j, gap))
-    log(f"lm f32: {cfg.name} at full width, {cfg.n_layers} layers: {s} "
-        f"decode steps' logits within {worst:.3e} of forward's (tol "
-        f"{LM_TOL}); greedy_generate equal to greedy_generate_reference on "
-        f"{LM_CHECK_BATCH} prompts of {LM_CHECK_PROMPT} + {LM_CHECK_NEW}"
-        + (f", but for near ties (row, position, top-2 gap) {ties}"
-           if ties else ""))
+    for r in range(batch):
+        diff = (new_toks[r] != old[r]).nonzero()
+        if len(diff):
+            # The rows part at position j: the prefix before it is the same.
+            j = int(diff[0])
+            ties.append((r, j, near_tie(model, params, old[r], j, tol)))
+    log(f"lm f32: {cfg.name} at full width, {cfg.n_layers} layers "
+        f"{overrides}: {s} decode steps' logits within {worst:.3e} of "
+        f"forward's (tol {tol}); greedy_generate equal to "
+        f"greedy_generate_reference on {batch} prompts of {prompt_len} + "
+        f"{new}" + (f", but for near ties (row, position, top-2 gap) {ties}"
+                    if ties else ""))
 
 
 def routing_spmm(cfg, params, prompt):
@@ -1870,15 +1963,161 @@ def routing_spmm(cfg, params, prompt):
     return launches
 
 
+def encdec_generate(model, params, frames, prompt, new, s_max):
+    """The enc-dec serving path (``tests/test_serve.py:27-39``): the
+    encoder fills the cross caches (``prefill_encdec_cache``), the prompt
+    goes through ``make_decode_step`` token by token, then ``new`` greedy
+    tokens. Returns (tokens (B, prompt + new), wall ms)."""
+    b, s = prompt.shape
+    step = engine.make_decode_step(model)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        cache = model.init_cache(b, s_max, enc_len=frames.shape[1],
+                                 device=prompt.device)
+        cache = engine.prefill_encdec_cache(model, params, frames, cache)
+        tok, out = prompt[:, :1], [prompt[:, :1]]
+        for i in range(s + new - 1):
+            pos = torch.full((b,), i, dtype=torch.int32, device=prompt.device)
+            logits, cache = step(params, cache, tok, pos)
+            if i + 1 < s:
+                tok = prompt[:, i + 1:i + 2]
+            else:
+                tok = torch.argmax(logits[:, -1, :model.cfg.vocab_size],
+                                   dim=-1)[:, None].to(torch.int32)
+            out.append(tok)
+        out = torch.cat(out, dim=1)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t1) * 1e3
+
+
+def serve_encdec(cfg):
+    """Phase 3i, enc-dec: ``cfg`` at full width and depth on the card;
+    ``encdec_generate`` twice from the seed (the same tokens), with init,
+    encode (``prefill_encdec_cache``) and decode-step times, tokens/s and
+    peak memory beside the step's bound."""
+    model = build(cfg)
+    dev = torch.device(LM_DEVICE)
+    params, init_ms, base_mem = init_on_card(model)
+    weight_bytes = tree_bytes(params)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model),
+                         generator=gen, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (ENCDEC_BATCH, ENCDEC_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    s_max = ENCDEC_PROMPT + ENCDEC_NEW
+    first, cold_ms = encdec_generate(model, params, frames, prompt,
+                                     ENCDEC_NEW, s_max)
+    again, wall_ms = encdec_generate(model, params, frames, prompt,
+                                     ENCDEC_NEW, s_max)
+    check_generated(f"lm {cfg.name}", cfg, first, again, prompt, s_max)
+    with torch.inference_mode():
+        cache = model.init_cache(ENCDEC_BATCH, s_max, enc_len=ENCDEC_FRAMES,
+                                 device=dev)
+        encode_ms = time_ms(lambda: engine.prefill_encdec_cache(
+            model, params, frames, cache), 3)
+        cache = engine.prefill_encdec_cache(model, params, frames, cache)
+        cross_bytes = sum(nbytes(c["ck"], c["cv"])
+                          for c in [*cache["blocks"].values(),
+                                    *cache["tail"]])
+    step_ms, step_profile = steps_ms(engine.make_decode_step(model), params,
+                                     cache, first, 0, s_max - 1)
+    del cache
+    peak = torch.cuda.max_memory_allocated()
+    bound_step_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    enc_tokens = ENCDEC_BATCH * ENCDEC_FRAMES
+    encode_flops = (block_flops(params["encoder"], enc_tokens)
+                    + 4.0 * cfg.n_enc_layers * ENCDEC_BATCH
+                    * ENCDEC_FRAMES ** 2 * cfg.n_heads * cfg.d_head
+                    + 2.0 * cfg.n_layers * enc_tokens * cfg.d_model
+                    * 2 * cfg.n_kv_heads * cfg.d_head)
+    log(f"lm: {cfg.name} {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.dtype}, {weight_bytes / 1e9:.3f} GB "
+        f"of weights, {cross_bytes / 1e9:.3f} GB of cross caches; "
+        f"{ENCDEC_BATCH} rows of {ENCDEC_FRAMES} frames, prompts of "
+        f"{ENCDEC_PROMPT} tokens, {ENCDEC_NEW} new each: the same tokens "
+        "twice, every one in the vocabulary")
+    log("lm measured: " + json.dumps({
+        "arch": cfg.name, "init_ms": init_ms, "generate_cold_ms": cold_ms,
+        "generate_ms": wall_ms, "encode_ms": encode_ms,
+        "decode_step_ms": statistics.median(step_ms[2:]),
+        "decode_step_ms_all": step_ms,
+        "tokens_per_s": ENCDEC_BATCH * ENCDEC_NEW / (wall_ms / 1e3),
+        "base_mb": base_mem / 2 ** 20,
+        "peak_mb_above_base": (peak - base_mem) / 2 ** 20,
+        "weight_bytes": weight_bytes, "cross_cache_bytes": cross_bytes,
+        "step_bound_ms": bound_step_ms, "encode_flops": encode_flops,
+        "encode_bound_ms": max(bound_step_ms,
+                               encode_flops / BF16_FLOPS_PER_S * 1e3)}))
+    log(f"profile lm {cfg.name} decode step: " + json.dumps(step_profile))
+
+
+def check_encdec_f32(cfg):
+    """Phase 3i, enc-dec: ``cfg`` at full width and depth in float32; each
+    decode step after ``prefill_encdec_cache`` against ``forward(tokens,
+    frames)``."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = build(cfg)
+    dev = torch.device(LM_DEVICE)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.randn((ENCDEC_CHECK_BATCH, ENCDEC_FRAMES, cfg.d_model),
+                         generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (ENCDEC_CHECK_BATCH, ENCDEC_CHECK_TOKENS),
+                         generator=gen, device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        want, _ = model.forward(params, {"tokens": toks, "frames": frames})
+        cache = engine.prefill_encdec_cache(
+            model, params, frames,
+            model.init_cache(ENCDEC_CHECK_BATCH, ENCDEC_CHECK_TOKENS,
+                             enc_len=ENCDEC_FRAMES, device=dev))
+        worst = check_decode(f"lm f32 {cfg.name}",
+                             engine.make_decode_step(model), params, cache,
+                             toks, want, ENCDEC_TOL)
+    log(f"lm f32: {cfg.name} at full width and depth: "
+        f"{ENCDEC_CHECK_TOKENS} decode steps after prefill_encdec_cache "
+        f"over {ENCDEC_FRAMES} frames within {worst:.3e} of forward's (tol "
+        f"{ENCDEC_TOL}) on {ENCDEC_CHECK_BATCH} rows")
+
+
+def lm_families():
+    """Phase 3i: the SSD, RG-LRU and enc-dec archs served at full width
+    and depth, and their float32 checks. Returns the kernels' launches
+    (the path runs none of the nine)."""
+    reset_counts()
+    for arch, (batch, prompt_len, new) in FAMILY_ARCHS.items():
+        cfg = get_config(arch)
+        params, _ = serve_full_width(
+            cfg, batch, prompt_len, new,
+            family_prefill_flops(cfg, batch, prompt_len))
+        del params
+        torch.cuda.empty_cache()
+        check_full_width_f32(cfg, *FAMILY_CHECKS[arch], LM_TOL)
+        torch.cuda.empty_cache()
+    cfg = get_config(ENCDEC_ARCH)
+    serve_encdec(cfg)
+    torch.cuda.empty_cache()
+    check_encdec_f32(cfg)
+    torch.cuda.empty_cache()
+    return counts()
+
+
 def lm_serving(cfg=None):
     """Phase 3h: LM serving (parts 1-3). Returns the launches of the
     routing SpMM, both of whose bodies must have run."""
     cfg = cfg or get_config(LM_ARCH)
-    params, prompt = serve_full_width(cfg)
+    flops = prefill_flops(cfg, LM_BATCH, LM_PROMPT)
+    params, prompt = serve_full_width(cfg, LM_BATCH, LM_PROMPT, LM_NEW,
+                                      lambda _: flops)
     launches = routing_spmm(cfg, params, prompt)
     del params
     torch.cuda.empty_cache()
-    check_full_width_f32(cfg)
+    check_full_width_f32(cfg, {"n_layers": LM_CHECK_LAYERS,
+                               "capacity_factor": 16.0}, LM_CHECK_BATCH,
+                         LM_CHECK_PROMPT, LM_CHECK_NEW, LM_TOL)
     torch.cuda.empty_cache()
     if not all(launches[k] for k in BODIES[DataflowClass.SPMM]):
         raise AssertionError(f"lm routing: a SpMM body never launched: "
@@ -2143,10 +2382,16 @@ def main() -> int:
     lm_launches = lm_serving()
     log(f"phase 3h LM serving: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 3i: the SSD, RG-LRU and enc-dec archs served -------------
+    t0 = time.perf_counter()
+    family_launches = lm_families()
+    log(f"phase 3i LM families: {time.perf_counter() - t0:.1f} s, "
+        f"launches {family_launches}")
+
     # ---- phase 4: the kernels line ---------------------------------------
     launches = {k: single_launches[k] + many_launches[k] + opt_launches[k]
                 + stream_launches[k] + serve_launches[k] + fleet_launches[k]
-                + lm_launches[k] for k in REPLACES}
+                + lm_launches[k] + family_launches[k] for k in REPLACES}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]

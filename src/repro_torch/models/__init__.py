@@ -1,6 +1,6 @@
-"""The LM zoo of the port (``repro.models``): configs, the decoder blocks
-of the attention families, MoE, flash attention's forward and the
-:class:`Model` facade."""
+"""The LM zoo of the port (``repro.models``): configs, the blocks of every
+family (attention, MoE, SSD, RG-LRU, the enc-dec encoder and cross
+attention), flash attention's forward and the :class:`Model` facade."""
 from repro_torch.models.config import (
     AespaConfig,
     ModelConfig,

@@ -161,26 +161,34 @@ def decode_attention(
     axes=None,
     *,
     window: Optional[int] = None,
+    cross: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token self-attention against a KV cache (JAX's ``cross=True``
-    comes with the enc-dec slice).
+    """One-token attention against a KV cache.
 
     x (B, 1, D); caches (B, S_max, KV, dh); pos (B,) current positions.
     Returns (out, new_k_cache, new_v_cache); the caches given are not
-    written.
+    written. ``cross=True`` (enc-dec) reads the whole prefilled encoder
+    cache: no K/V write, no RoPE, and every row attended (an empty cache
+    gives zeros).
     """
     check_axes(axes)
     b, _, d = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     s_max = k_cache.shape[1]
-    q, k, v = qkv_project(p, x, cfg)
-    cos, sin = rope_angles(pos[:, None], dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    k_cache = _cache_insert(k_cache, k, pos)
-    v_cache = _cache_insert(v_cache, v, pos)
+    if cross:
+        q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+    else:
+        q, k, v = qkv_project(p, x, cfg)
+        cos, sin = rope_angles(pos[:, None], dh, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        k_cache = _cache_insert(k_cache, k, pos)
+        v_cache = _cache_insert(v_cache, v, pos)
     qg = q.reshape(b, kvh, h // kvh, dh)
-    out = _decode_attend(qg, k_cache, v_cache, pos, window, dh,
+    attend_pos = torch.full_like(pos, s_max) if cross else pos
+    out = _decode_attend(qg, k_cache, v_cache, attend_pos, window, dh,
                          torch.arange(s_max, device=x.device))
     o = out.reshape(b, 1, h * dh).to(x.dtype)
     return (torch.einsum("bsf,fd->bsd", o, p["wo"].reshape(h * dh, d)),

@@ -1,16 +1,16 @@
-"""Unified decoder — the port of ``repro.models.transformer`` for the
-attention families: ``dense``, ``moe`` and ``vlm`` (the vision stub:
-precomputed patch embeddings through a learned adapter, prepended to the
-text).
+"""Unified model — the port of ``repro.models.transformer``: one
+implementation for the dense, MoE, SSM, hybrid, enc-dec and VLM families
+through *layer kinds*.
 
-Layer kinds ``global`` (full attention) and ``local`` (sliding window).
-Params keep JAX's nesting: ``{"embed", "final_norm", "blocks": {"s0":
-...}, "tail": [...]}``, each ``blocks`` slot stacked along a leading
+Layer kinds: ``global`` (full attention), ``local`` (sliding window),
+``recurrent`` (RG-LRU), ``ssd`` (Mamba2) and ``enc`` (bidirectional, the
+encoder's). Params keep JAX's nesting: ``{"embed", "final_norm",
+"blocks": {"s0": ...}, "tail": [...]}`` and, for enc-dec, an ``encoder``
+subtree of the same form; each ``blocks`` slot is stacked along a leading
 period axis as JAX's ``_stack`` does. JAX scans the stacked periods; here
-a Python loop walks the leading axis, then the tail. The SSD and RG-LRU
-kinds (mamba2, recurrentgemma) and the enc-dec family (whisper) raise
-:class:`NotImplementedError`: they are the next slice of the port
-(``ROADMAP.md`` queue 1).
+a Python loop walks the leading axis, then the tail. The VLM and audio
+frontends are stubs, as in JAX: precomputed patch or frame embeddings
+through a learned adapter.
 """
 from __future__ import annotations
 
@@ -20,22 +20,23 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssd as S
 from repro_torch.models.config import ModelConfig
 
 ATTENTION_KINDS = ("global", "local")
-FAMILIES = ("dense", "moe", "vlm")
+KINDS = ATTENTION_KINDS + ("recurrent", "ssd", "enc")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
-    kinds = set(cfg.layer_kinds()) - set(ATTENTION_KINDS)
+    """Raise for a family or layer kind the model does not know."""
+    kinds = set(cfg.layer_kinds()) - set(KINDS)
     if cfg.family not in FAMILIES or kinds:
         what = sorted(kinds) or [cfg.family]
         raise NotImplementedError(
-            f"{cfg.name}: {what} not ported yet; repro_torch runs the "
-            f"attention families {FAMILIES} (global/local blocks). The SSD "
-            "and RG-LRU blocks and the enc-dec path are the next slice of "
-            "ROADMAP.md queue 1")
+            f"{cfg.name}: unknown {what}; repro_torch runs the families "
+            f"{FAMILIES} with the layer kinds {KINDS}")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -47,12 +48,21 @@ def _is_moe(cfg: ModelConfig, kind: str) -> bool:
 
 
 # ------------------------------------------------------------- block init
-def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
-                dtype) -> dict:
-    d = cfg.d_model
-    p: Dict[str, Any] = {"norm1": L.rmsnorm_init(d, dtype, gen.device),
-                         "norm2": L.rmsnorm_init(d, dtype, gen.device),
-                         "attn": L.init_attention(gen, cfg, dtype)}
+def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype,
+                with_cross: bool = False) -> dict:
+    d, dev = cfg.d_model, gen.device
+    if kind == "ssd":
+        return {"norm1": L.rmsnorm_init(d, dtype, dev),
+                "mix": S.init_mamba(gen, cfg, dtype)}
+    p: Dict[str, Any] = {"norm1": L.rmsnorm_init(d, dtype, dev),
+                         "norm2": L.rmsnorm_init(d, dtype, dev)}
+    if kind == "recurrent":
+        p["rec"] = R.init_rglru_block(gen, cfg, dtype)
+    else:
+        p["attn"] = L.init_attention(gen, cfg, dtype)
+    if with_cross:
+        p["norm_c"] = L.rmsnorm_init(d, dtype, dev)
+        p["cross"] = L.init_attention(gen, cfg, dtype)
     if _is_moe(cfg, kind):
         p["ffn"] = M.init_moe(gen, cfg, dtype)
     else:
@@ -75,49 +85,69 @@ def _index(tree, i: int):
 
 
 def _stacked_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
-                   dtype, n: int) -> dict:
+                   dtype, n: int, with_cross: bool) -> dict:
     """``n`` blocks stacked along a leading axis, each written into the
     stack as it is drawn (one block's temporaries at a time)."""
-    first = _init_block(gen, kind, cfg, dtype)
+    first = _init_block(gen, kind, cfg, dtype, with_cross)
     stack = _tree_map(lambda t: t.new_empty((n, *t.shape)), first)
     for r in range(n):
-        block = first if r == 0 else _init_block(gen, kind, cfg, dtype)
+        block = (first if r == 0
+                 else _init_block(gen, kind, cfg, dtype, with_cross))
         _tree_map(lambda dst, src: dst[r].copy_(src), stack, block)
         del block
     return stack
+
+
+def _encoder_split(cfg: ModelConfig):
+    """The encoder's (n_periods, period, tail): ``enc`` blocks only."""
+    return cfg.n_enc_layers, ("enc",), ()
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random params on ``gen``'s device, drawn from ``gen``."""
     cfg.validate()
     check_supported(cfg)
-    dtype = cfg.param_dtype
-    n_periods, period, tail = cfg.pattern_split()
+    dtype, dev = cfg.param_dtype, gen.device
     params: Dict[str, Any] = {
         "embed": {"tok": (torch.randn((padded_vocab(cfg), cfg.d_model),
-                                      generator=gen, device=gen.device)
+                                      generator=gen, device=dev)
                           * 0.02).to(dtype)},
-        "final_norm": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
+        "final_norm": L.rmsnorm_init(cfg.d_model, dtype, dev),
     }
     if not cfg.tie_embeddings:
         params["embed"]["head"] = L.dense_init(gen, cfg.d_model,
                                                padded_vocab(cfg), dtype)
-    params["blocks"] = {f"s{si}": _stacked_block(gen, kind, cfg, dtype,
-                                                 n_periods)
-                        for si, kind in enumerate(period)}
-    params["tail"] = [_init_block(gen, kind, cfg, dtype) for kind in tail]
+
+    def blocks(split, cross):
+        n_periods, period, tail = split
+        return ({f"s{si}": _stacked_block(gen, kind, cfg, dtype, n_periods,
+                                          cross)
+                 for si, kind in enumerate(period)},
+                [_init_block(gen, kind, cfg, dtype, cross) for kind in tail])
+
+    with_cross = cfg.family == "encdec"
+    params["blocks"], params["tail"] = blocks(cfg.pattern_split(),
+                                              with_cross)
+    if with_cross:
+        enc_blocks, enc_tail = blocks(_encoder_split(cfg), False)
+        params["encoder"] = {
+            "blocks": enc_blocks,
+            "tail": enc_tail,
+            "final_norm": L.rmsnorm_init(cfg.d_model, dtype, dev),
+            "adapter": L.dense_init(gen, cfg.d_model, cfg.d_model, dtype),
+        }
     if cfg.frontend == "vision_stub":
         params["frontend"] = {
             "adapter": L.dense_init(gen, cfg.d_model, cfg.d_model, dtype)}
     return params
 
 
-def _layers(cfg: ModelConfig, params: dict, cache: Optional[dict] = None):
-    """(kind, block params, block cache, slot) in layer order: the stacked
-    periods along their leading axis, then the tail. ``slot`` is
-    ``(si, period index)`` for a stacked block, ``(None, tail index)`` for
-    the tail."""
-    n_periods, period, tail = cfg.pattern_split()
+def _layers(split, params: dict, cache: Optional[dict] = None):
+    """(kind, block params, block cache, slot) in layer order for the
+    (n_periods, period, tail) ``split``: the stacked periods along their
+    leading axis, then the tail. ``slot`` is ``(si, period index)`` for a
+    stacked block, ``(None, tail index)`` for the tail."""
+    n_periods, period, tail = split
     for i in range(n_periods):
         for si, kind in enumerate(period):
             key = f"s{si}"
@@ -149,11 +179,20 @@ def _ffn(p: dict, kind: str, h2: torch.Tensor, cfg: ModelConfig):
     return L.mlp(p["ffn"], h2, cfg), None
 
 
-def _apply_block(kind: str, p: dict, x, cfg, positions, aux):
+def _apply_block(kind: str, p: dict, x, cfg, positions, aux, enc_kv=None):
+    if kind == "ssd":
+        return x + S.mamba_apply(
+            p["mix"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg), aux
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-    window = cfg.sliding_window if kind == "local" else None
-    x = x + L.attention(p["attn"], h, cfg, positions=positions,
-                        causal=True, window=window)
+    if kind == "recurrent":
+        x = x + R.rglru_apply(p["rec"], h, cfg)
+    else:
+        window = cfg.sliding_window if kind == "local" else None
+        x = x + L.attention(p["attn"], h, cfg, positions=positions,
+                            causal=(kind != "enc"), window=window)
+    if "cross" in p and enc_kv is not None:
+        hc = L.rmsnorm(x, p["norm_c"], cfg.norm_eps)
+        x = x + L.attention(p["cross"], hc, cfg, kv_override=enc_kv)
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
     y, routing = _ffn(p, kind, h2, cfg)
     if routing is not None:
@@ -162,6 +201,19 @@ def _apply_block(kind: str, p: dict, x, cfg, positions, aux):
 
 
 # ------------------------------------------------------------ full forward
+def encode(params, frames: torch.Tensor, cfg: ModelConfig, axes=None
+           ) -> torch.Tensor:
+    """Whisper-style encoder over stubbed frame embeddings (B, S_enc, D)."""
+    L.check_axes(axes)
+    enc = params["encoder"]
+    x = torch.einsum("bsd,de->bse", frames.to(cfg.param_dtype),
+                     enc["adapter"])
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for kind, p, _, _ in _layers(_encoder_split(cfg), enc):
+        x, _ = _apply_block(kind, p, x, cfg, positions, None)
+    return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+
+
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             axes=None, return_hidden: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -169,21 +221,28 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     ``return_hidden=True`` returns final hidden states instead of logits.
     batch: tokens (B, S_text); optional 'frontend' (B, n_front, D) patch
-    embeddings (VLM). The MoE aux loss sums over the MoE blocks (float32
-    zero for the other families).
+    embeddings (VLM); 'frames' (B, S_enc, D) audio frames (enc-dec), whose
+    encoding each decoder block projects to its cross K/V. The MoE aux
+    loss sums over the MoE blocks (float32 zero for the other families).
     """
     L.check_axes(axes)
     check_supported(cfg)
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, cfg)
+    x = L.embed(params["embed"], batch["tokens"], cfg)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = encode(params, batch["frames"], cfg)
     if cfg.frontend == "vision_stub":
         fr = torch.einsum("bsd,de->bse", batch["frontend"].to(x.dtype),
                           params["frontend"]["adapter"])
         x = torch.cat([fr, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p, _, _ in _layers(cfg, params):
-        x, aux = _apply_block(kind, p, x, cfg, positions, aux)
+    for kind, p, _, _ in _layers(cfg.pattern_split(), params):
+        enc_kv = None
+        if enc_out is not None and "cross" in p:
+            enc_kv = (torch.einsum("bsd,dhe->bshe", enc_out, p["cross"]["wk"]),
+                      torch.einsum("bsd,dhe->bshe", enc_out, p["cross"]["wv"]))
+        x, aux = _apply_block(kind, p, x, cfg, positions, aux, enc_kv)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux
@@ -194,51 +253,90 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
                enc_len: int = 0, device=None) -> dict:
     """Decode cache tree mirroring the block structure, zeros on
-    ``device`` (the caller resolves it)."""
+    ``device`` (the caller resolves it): K/V of ``s_max`` positions for an
+    attention block (and cross K/V of ``enc_len`` for enc-dec), the
+    recurrent state of an SSD or RG-LRU block."""
     check_supported(cfg)
     dtype = dtype or cfg.param_dtype
     n_periods, period, tail = cfg.pattern_split()
 
-    def one(lead=()):
-        shape = (*lead, batch, s_max, cfg.n_kv_heads, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    def one(kind, n=None):
+        if kind == "ssd":
+            c = S.init_mamba_cache(cfg, batch, dtype, device)
+        elif kind == "recurrent":
+            c = R.init_rglru_cache(cfg, batch, dtype, device)
+        else:
+            kv = (batch, s_max, cfg.n_kv_heads, cfg.d_head)
+            c = {"k": torch.zeros(kv, dtype=dtype, device=device),
+                 "v": torch.zeros(kv, dtype=dtype, device=device)}
+            if cfg.family == "encdec":
+                ckv = (batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+                c["ck"] = torch.zeros(ckv, dtype=dtype, device=device)
+                c["cv"] = torch.zeros(ckv, dtype=dtype, device=device)
+        if n is None:
+            return c
+        return {k: t.expand(n, *t.shape).clone() for k, t in c.items()}
 
-    return {"blocks": {f"s{si}": one((n_periods,))
-                       for si in range(len(period))},
-            "tail": [one() for _ in tail]}
+    return {"blocks": {f"s{si}": one(kind, n_periods)
+                       for si, kind in enumerate(period)},
+            "tail": [one(kind) for kind in tail]}
 
 
 def _decode_block(kind: str, p: dict, c: dict, x, pos, cfg):
+    if kind == "ssd":
+        y, c2 = S.mamba_decode(
+            p["mix"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), c, cfg)
+        return x + y, c2
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-    window = cfg.sliding_window if kind == "local" else None
-    y, k2, v2 = L.decode_attention(p["attn"], h, c["k"], c["v"], pos, cfg,
-                                   window=window)
+    if kind == "recurrent":
+        y, c2 = R.rglru_decode(p["rec"], h, c, cfg)
+    else:
+        window = cfg.sliding_window if kind == "local" else None
+        y, k2, v2 = L.decode_attention(p["attn"], h, c["k"], c["v"], pos,
+                                       cfg, window=window)
+        c2 = dict(c, k=k2, v=v2)
     x = x + y
+    if "cross" in p and "ck" in c:
+        hc = L.rmsnorm(x, p["norm_c"], cfg.norm_eps)
+        yc, _, _ = L.decode_attention(p["cross"], hc, c["ck"], c["cv"], pos,
+                                      cfg, cross=True)
+        x = x + yc
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
     y, _ = _ffn(p, kind, h2, cfg)
-    return x + y, dict(c, k=k2, v=v2)
+    return x + y, c2
 
 
 def _prefill_block(kind: str, p: dict, c: dict, x, positions, cfg):
     """Full-sequence twin of :func:`_decode_block`: the block output for
     the whole prompt in parallel, plus the decode cache after it (K/V
     written at positions ``[0, S)``, as the per-token decode writes them:
-    same projections and bias, RoPE at each position)."""
+    same projections and bias, RoPE at each position; the SSD and RG-LRU
+    final states from their chunked and parallel scans)."""
+    if kind == "ssd":
+        y, st = S.mamba_apply(p["mix"],
+                              L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg,
+                              return_state=True)
+        return x + y, {"h": st["h"], "conv": st["conv"].to(c["conv"].dtype)}
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-    window = cfg.sliding_window if kind == "local" else None
-    x = x + L.attention(p["attn"], h, cfg, positions=positions,
-                        causal=True, window=window)
-    _, k, v = L.qkv_project(p["attn"], h, cfg)
-    cos, sin = L.rope_angles(positions, cfg.d_head, cfg.rope_theta)
-    k = L.apply_rope(k, cos, sin)
-    s = k.shape[1]
-    k2, v2 = c["k"].clone(), c["v"].clone()
-    k2[:, :s] = k.to(k2.dtype)
-    v2[:, :s] = v.to(v2.dtype)
+    if kind == "recurrent":
+        y, st = R.rglru_apply(p["rec"], h, cfg, return_state=True)
+        x = x + y
+        c2 = {"h": st["h"], "conv": st["conv"].to(c["conv"].dtype)}
+    else:
+        window = cfg.sliding_window if kind == "local" else None
+        x = x + L.attention(p["attn"], h, cfg, positions=positions,
+                            causal=True, window=window)
+        _, k, v = L.qkv_project(p["attn"], h, cfg)
+        cos, sin = L.rope_angles(positions, cfg.d_head, cfg.rope_theta)
+        k = L.apply_rope(k, cos, sin)
+        s = k.shape[1]
+        k2, v2 = c["k"].clone(), c["v"].clone()
+        k2[:, :s] = k.to(k2.dtype)
+        v2[:, :s] = v.to(v2.dtype)
+        c2 = dict(c, k=k2, v=v2)
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
     y, _ = _ffn(p, kind, h2, cfg)
-    return x + y, dict(c, k=k2, v=v2)
+    return x + y, c2
 
 
 def prefill_with_cache(params, cache: dict, tokens: torch.Tensor,
@@ -250,14 +348,20 @@ def prefill_with_cache(params, cache: dict, tokens: torch.Tensor,
     through position S): one parallel forward instead of S sequential
     ``decode_step`` calls, after which generation continues with
     ``decode_step`` at position S. The cache given is not written.
+    Decoder-only families; enc-dec prefill goes through
+    ``serve.engine.prefill_encdec_cache``.
     """
     L.check_axes(axes)
     check_supported(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "prefill_with_cache covers decoder-only families; use "
+            "prefill_encdec_cache + decode_step for enc-dec models")
     s = tokens.shape[1]
     x = L.embed(params["embed"], tokens, cfg)
     positions = torch.arange(s, device=x.device)[None, :]
     new = {}
-    for kind, p, c, slot in _layers(cfg, params, cache):
+    for kind, p, c, slot in _layers(cfg.pattern_split(), params, cache):
         x, new[slot] = _prefill_block(kind, p, c, x, positions, cfg)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     lg = L.logits(params["embed"], x[:, -1:, :], cfg)
@@ -267,24 +371,31 @@ def prefill_with_cache(params, cache: dict, tokens: torch.Tensor,
 def decode_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
                 cfg: ModelConfig, axes=None) -> Tuple[torch.Tensor, dict]:
     """One decoding step: tokens (B, 1), pos (B,) -> (logits (B, 1, Vp),
-    a new cache). Every ``pos`` must lie inside the cache (one host read of
-    ``pos``); JAX's dynamic-update-slice would clamp it silently."""
+    a new cache). Where the model has an attention cache, every ``pos``
+    must lie inside it (one host read of ``pos``); JAX's
+    dynamic-update-slice would clamp it silently. A model with recurrent
+    state only bounds no position, as in JAX."""
     L.check_axes(axes)
     check_supported(cfg)
     s_max = _cache_len(cache)
-    if bool(((pos < 0) | (pos >= s_max)).any()):
+    if s_max is not None and bool(((pos < 0) | (pos >= s_max)).any()):
         raise ValueError(f"decode position {pos.tolist()} outside the "
                          f"cache of {s_max} positions")
     x = L.embed(params["embed"], tokens, cfg)
     new = {}
-    for kind, p, c, slot in _layers(cfg, params, cache):
+    for kind, p, c, slot in _layers(cfg.pattern_split(), params, cache):
         x, new[slot] = _decode_block(kind, p, c, x, pos, cfg)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return L.logits(params["embed"], x, cfg), _gather_cache(cfg, new)
 
 
-def _cache_len(cache: dict) -> int:
-    """S_max of a cache tree (the sequence axis of any K cache)."""
-    if cache["tail"]:
-        return cache["tail"][0]["k"].shape[1]
-    return next(iter(cache["blocks"].values()))["k"].shape[2]
+def _cache_len(cache: dict) -> Optional[int]:
+    """S_max of a cache tree: the sequence axis of its first attention
+    cache, in layer-slot order (None when it holds none)."""
+    for c in cache["blocks"].values():
+        if "k" in c:
+            return c["k"].shape[2]
+    for c in cache["tail"]:
+        if "k" in c:
+            return c["k"].shape[1]
+    return None

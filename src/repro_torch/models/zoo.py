@@ -107,7 +107,7 @@ class Model:
 
 def build(cfg: ModelConfig) -> Model:
     """A :class:`Model` for ``cfg``; raises :class:`NotImplementedError`
-    for the families and block kinds this slice does not run."""
+    for a family or block kind the model does not know."""
     cfg.validate()
     T.check_supported(cfg)
     return Model(cfg)
@@ -123,19 +123,39 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(dev)
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
-    """The JAX package's params (``jax.tree.map(np.asarray, params)``) as
-    the port's: the same nesting (dicts, the ``tail`` list) and dtypes, on
-    ``device`` (default: the card). Checks the tree against ``cfg``'s
-    block layout."""
-    dev = resolve_device(device)
-    n_periods, period, tail = cfg.pattern_split()
-    if set(tree["blocks"]) != {f"s{si}" for si in range(len(period))} \
-            or len(tree["tail"]) != len(tail):
-        raise ValueError(f"params do not match {cfg.name}'s layout: blocks "
+def _check_layout(tree, split, what: str) -> None:
+    """``tree``'s ``blocks`` slots and ``tail`` against the (n_periods,
+    period, tail) ``split``, each slot with ``n_periods`` along its leading
+    axis."""
+    n_periods, period, tail = split
+    slots = {f"s{si}" for si in range(len(period))}
+    if set(tree["blocks"]) != slots or len(tree["tail"]) != len(tail):
+        raise ValueError(f"params do not match {what}'s layout: blocks "
                          f"{sorted(tree['blocks'])}, {len(tree['tail'])} "
                          f"tail blocks; want {len(period)} slots and "
                          f"{len(tail)} tail blocks")
+    for slot, block in tree["blocks"].items():
+        leads = set()
+        T._tree_map(lambda a: leads.add(np.shape(a)[0]), block)
+        if leads != {n_periods}:
+            raise ValueError(f"params do not match {what}'s layout: slot "
+                             f"{slot} stacks {sorted(leads)} periods; want "
+                             f"{n_periods}")
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
+    """The JAX package's params (``jax.tree.map(np.asarray, params)``) as
+    the port's: the same nesting (dicts, the ``tail`` lists) and dtypes, on
+    ``device`` (default: the card). Checks the tree against ``cfg``'s
+    block layout, the encoder's included."""
+    dev = resolve_device(device)
+    _check_layout(tree, cfg.pattern_split(), cfg.name)
+    if (cfg.family == "encdec") != ("encoder" in tree):
+        raise ValueError(f"params do not match {cfg.name}'s layout: "
+                         f"encoder {'encoder' in tree}, family {cfg.family}")
+    if "encoder" in tree:
+        _check_layout(tree["encoder"], T._encoder_split(cfg),
+                      f"{cfg.name}'s encoder")
     want = (T.padded_vocab(cfg), cfg.d_model)
     if tuple(np.shape(tree["embed"]["tok"])) != want:
         raise ValueError(f"embedding {np.shape(tree['embed']['tok'])}, "

@@ -1,16 +1,17 @@
 """LM serving: prefill + batched greedy decode with KV caches — the port of
-``repro.serve.engine`` for the decoder-only attention families.
+``repro.serve.engine``.
 
 JAX jits the prefill and the decode step; here each is an eager call under
 ``torch.inference_mode()``. ``greedy_generate`` and
 ``greedy_generate_reference`` are entry points: they run on the card
 unless the caller passes ``device="cpu"``, and the params must already lie
-there. The enc-dec cross caches (``prefill_encdec_cache``) and the
-context-parallel cache wait for their slices (``ROADMAP.md`` queue 1).
+there. The context-parallel cache waits for the sharding slice
+(``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
 
 import torch
 
@@ -61,6 +62,28 @@ def make_prefill(model: Model, axes=None, with_cache: bool = False):
     return prefill
 
 
+def prefill_encdec_cache(model: Model, params, frames: torch.Tensor,
+                         cache: dict, axes=None) -> dict:
+    """Run the encoder and fill every decoder layer's cross K/V cache:
+    a new cache; the one given is not written."""
+    cfg = model.cfg
+    if cfg.family != "encdec":
+        raise ValueError(f"{cfg.name} is {cfg.family}, not enc-dec")
+    enc_out = T.encode(params, frames, cfg, axes)
+
+    def fill(block_p, block_c, stacked: bool):
+        wk, wv = block_p["cross"]["wk"], block_p["cross"]["wv"]
+        eq = "bsd,pdhe->pbshe" if stacked else "bsd,dhe->bshe"
+        ck = torch.einsum(eq, enc_out, wk).to(block_c["ck"].dtype)
+        cv = torch.einsum(eq, enc_out, wv).to(block_c["cv"].dtype)
+        return dict(block_c, ck=ck, cv=cv)
+
+    return {"blocks": {slot: fill(params["blocks"][slot], bc, True)
+                       for slot, bc in cache["blocks"].items()},
+            "tail": [fill(tp, tc, False)
+                     for tp, tc in zip(params["tail"], cache["tail"])]}
+
+
 def _on(params, prompt: torch.Tensor, device) -> torch.Tensor:
     """The prompt on the resolved device, which must be the params'."""
     dev = resolve_device(device)
@@ -79,14 +102,23 @@ def _next_token(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
 
 def greedy_generate(model: Model, params, prompt: torch.Tensor,
                     n_steps: int, s_max: int, axes=None,
+                    enc_batch: Optional[Dict] = None,
                     device=None) -> torch.Tensor:
     """Batched greedy decoding: one full-sequence prefill, then a loop of
-    single-token decode steps. prompt (B, S) -> (B, S + n_steps)."""
+    single-token decode steps. prompt (B, S) -> (B, S + n_steps).
+
+    Enc-dec models take JAX's path: the token-by-token
+    :func:`greedy_generate_reference`, whose cross caches are empty
+    (``enc_len=0``), so the decoder attends to no encoder output;
+    ``enc_batch`` is accepted and unused, as in JAX."""
     cfg = model.cfg
     prompt = _on(params, prompt, device)
     b, s_prompt = prompt.shape
     if n_steps <= 0:
         return prompt
+    if cfg.family == "encdec":
+        return greedy_generate_reference(model, params, prompt, n_steps,
+                                         s_max, axes, device=device)
     prefill = make_prefill(model, axes, with_cache=True)
     step = make_decode_step(model, axes)
     with torch.inference_mode():

@@ -1,9 +1,11 @@
 """The port's LM zoo (``repro_torch.models``) against the JAX package's on
-the attention families: the same params (JAX's initial ones, carried
+the decoder-only families: the same params (JAX's initial ones, carried
 across with ``params_from_numpy``) and the same numpy tokens give the same
 ``forward`` logits and MoE aux loss, the same ``decode_step`` logits step
-by step, and the same ``prefill_with_cache`` logits and cache, at
-``tests/test_serve.py``'s tolerances (2e-3 for attention, 5e-3 for MoE)."""
+by step, and the same ``prefill_with_cache`` logits and cache (every leaf:
+K/V, and the SSD and RG-LRU states ``h`` and ``conv``), at
+``tests/test_serve.py``'s tolerances (2e-3 for attention, 5e-3 for SSD,
+RG-LRU and MoE). Enc-dec (whisper) is ``tests/test_torch_encdec.py``'s."""
 import dataclasses
 import functools
 
@@ -27,7 +29,10 @@ B, S = 2, 20
 #: (arch, config overrides, tolerance). gemma3 reduced has a window of 16
 #: and S = 20 > 16, so its local layers mask; its chunk of 4 makes the
 #: flash forward walk five chunks. olmoe takes capacity_factor=16 as
-#: tests/test_serve.py does, so prefill drops no token.
+#: tests/test_serve.py does, so prefill drops no token. mamba2 reduced has
+#: an SSD chunk of 16, so S = 20 takes the gcd chunking (five chunks of
+#: 4); recurrentgemma reduced (rec, rec, local, then a rec tail) has a
+#: window of 16 too.
 ARCHS = [
     ("qwen2.5-3b", {}, 2e-3),                    # GQA + qkv bias
     ("llama3.2-3b", {}, 2e-3),                   # GQA
@@ -35,6 +40,8 @@ ARCHS = [
     ("qwen1.5-0.5b", {}, 2e-3),                  # tied embeddings
     ("internvl2-1b", {}, 2e-3),                  # vision stub
     ("olmoe-1b-7b", {"capacity_factor": 16.0}, 5e-3),   # MoE
+    ("mamba2-370m", {}, 5e-3),                   # SSD chunked vs recurrent
+    ("recurrentgemma-2b", {}, 5e-3),             # RG-LRU scan vs sequential
 ]
 IDS = [a for a, _, _ in ARCHS]
 
@@ -64,6 +71,27 @@ def close(got, want, t):
     np.testing.assert_allclose(np.asarray(got.float()), np.asarray(want,
                                                                    np.float32),
                                rtol=t, atol=t)
+
+
+def node(tree, path):
+    """The port tree's node at a JAX key path (dict keys, list indices)."""
+    for k in path:
+        tree = tree[k.key if hasattr(k, "key") else k.idx]
+    return tree
+
+
+def close_tree(got, want, t):
+    """Every leaf of the port tree ``got`` against JAX's ``want``: the same
+    paths, shapes and dtypes, values within ``t``."""
+    leaves = jax.tree.flatten_with_path(want)[0]
+    n = []
+    tT._tree_map(n.append, got)
+    assert len(n) == len(leaves)
+    for path, v in leaves:
+        g = node(got, path)
+        assert tuple(g.shape) == v.shape, jax.tree_util.keystr(path)
+        assert str(g.dtype) == f"torch.{v.dtype}", jax.tree_util.keystr(path)
+        close(g, v, t)
 
 
 def test_params_carried_across_keep_nesting_and_dtypes():
@@ -141,8 +169,7 @@ def test_decode_steps_match_jax(arch):
                                  tpos)
         assert got.shape == (B, 1, tm.padded_vocab)
         close(got, want, tol(arch))
-    close(tc["blocks"]["s0"]["k"], jc["blocks"]["s0"]["k"], tol(arch))
-    close(tc["blocks"]["s0"]["v"], jc["blocks"]["s0"]["v"], tol(arch))
+    close_tree(tc, jc, tol(arch))
 
 
 @pytest.mark.parametrize("arch", IDS)
@@ -160,16 +187,10 @@ def test_prefill_with_cache_matches_jax(arch):
     got, tc2 = tT.prefill_with_cache(tp, tc, torch.from_numpy(toks), tm.cfg)
     assert got.shape == (B, 1, tm.padded_vocab)
     close(got, want, tol(arch))
-    for key in jc2["blocks"]:
-        for name in ("k", "v"):
-            assert tc2["blocks"][key][name].shape == \
-                jc2["blocks"][key][name].shape
-            close(tc2["blocks"][key][name], jc2["blocks"][key][name],
-                  tol(arch))
-    for tj, tt in zip(jc2["tail"], tc2["tail"]):
-        close(tt["k"], tj["k"], tol(arch))
-        close(tt["v"], tj["v"], tol(arch))
-    assert not tc["blocks"]["s0"]["k"].any()
+    close_tree(tc2, jc2, tol(arch))
+    given = []
+    tT._tree_map(given.append, tc)
+    assert not any(t.any() for t in given)
     nxt = np.full((B, 1), 3, np.int32)
     want, _ = jax.jit(jmake_decode_step(jm, None))(
         jp, jc2, jnp.asarray(nxt), jnp.full((B,), S, jnp.int32))
@@ -188,14 +209,23 @@ def test_decode_step_rejects_a_position_past_the_cache():
         tm.decode_step(tp, tc, tok, torch.full((B,), 4, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b",
-                                  "whisper-base"])
-def test_families_of_the_next_slice_raise(arch):
-    cfg = tconfigs.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tbuild(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tT.init_params(cfg, torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("arch", tconfigs.all_archs())
+def test_every_arch_builds_with_jax_tree_and_dtypes(arch):
+    """``build`` and ``init_params`` take all ten archs (reduced) and give
+    JAX's params tree: the same paths, shapes and dtypes."""
+    tcfg = tconfigs.get_reduced(arch)
+    tm = tbuild(tcfg)
+    tp = tT.init_params(tcfg, torch.Generator().manual_seed(0))
+    want = jbuild(jconfigs.get_reduced(arch)).abstract_params()
+    leaves = jax.tree.flatten_with_path(want)[0]
+    n = []
+    tT._tree_map(n.append, tp)
+    assert len(n) == len(leaves)
+    for path, v in leaves:
+        g = node(tp, path)
+        assert tuple(g.shape) == v.shape, jax.tree_util.keystr(path)
+        assert str(g.dtype) == f"torch.{v.dtype}", jax.tree_util.keystr(path)
+    assert tm.padded_vocab == tp["embed"]["tok"].shape[0]
 
 
 def test_sharding_axes_raise():

@@ -34,7 +34,8 @@ def prompt(cfg, shape=(2, 5), seed=13):
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b", "qwen2.5-3b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b", "qwen2.5-3b",
+                                  "mamba2-370m", "recurrentgemma-2b"])
 def test_greedy_generate_tokens_equal_jax(arch):
     jm, jp, tm, tp = pair(arch)
     pr = prompt(jm.cfg)
@@ -50,7 +51,8 @@ def test_greedy_generate_tokens_equal_jax(arch):
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b", "qwen2.5-3b",
                                   "llama3.2-3b", "qwen1.5-0.5b",
-                                  "internvl2-1b"])
+                                  "internvl2-1b", "mamba2-370m",
+                                  "recurrentgemma-2b"])
 def test_greedy_generate_prefill_matches_token_by_token(arch):
     """``tests/test_serve.py``'s
     ``test_greedy_generate_prefill_matches_token_by_token`` in the port."""
@@ -89,6 +91,24 @@ def test_greedy_generate_edges():
     with pytest.raises(ValueError, match="params lie on"):
         tengine.greedy_generate(tm, tp, pr, n_steps=2, s_max=8,
                                 device="meta")
+
+
+def test_greedy_generate_signature_matches_jax():
+    """JAX's parameters in JAX's order up to ``enc_batch``, so a call
+    written for ``repro`` binds the same parameters by keyword or by
+    position; the port's ``device`` comes after them."""
+    import inspect
+
+    jparams = list(inspect.signature(jengine.greedy_generate).parameters)
+    tparams = list(inspect.signature(tengine.greedy_generate).parameters)
+    assert jparams[-1] == "enc_batch"
+    assert tparams == jparams + ["device"]
+    _, _, tm, tp = pair("qwen1.5-0.5b")
+    pr = torch.from_numpy(prompt(tm.cfg, (1, 4)))
+    by_position = tengine.greedy_generate(tm, tp, pr, 2, 8, None, None,
+                                          "cpu")
+    assert torch.equal(by_position, tengine.greedy_generate(
+        tm, tp, pr, n_steps=2, s_max=8, enc_batch=None, device="cpu"))
 
 
 def test_serve_package_re_exports_the_engine():
