@@ -147,8 +147,32 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    whisper at full depth on frames (2, 1500, 512), each decode step after
    ``prefill_encdec_cache`` within 3e-3 of ``forward(tokens, frames)``.
    The path launches none of the port's kernels.
+   3j. LM training: qwen1.5-0.5b at full width and depth with bf16 params
+   (``TrainConfig()``'s mixed precision, float32 master copies, xent chunk
+   512, ``remat="block"``, warmup 2), initialised on the card from seed 0,
+   on a synthetic ``TokenDataset`` (vocab 151936, 4 × 4096 tokens a step,
+   seed 1234): 8 steps overfitting ``batch_at(0)`` (the loss falls, every
+   metric finite) with init ms, step ms (host clock ending in a
+   synchronize, median of steps 3-8 and its range), tokens/s and peak
+   memory beside the step's bound, and one step under ``torch.profiler``;
+   then ``TrainDriver`` for 8 steps, a checkpoint every 2 into a fresh
+   temporary directory, with a failure injected at step 5 (one restart,
+   the last checkpoint step 8), and again without it from the same initial
+   state: the same final loss (within 1e-6 relative, the JAX test's bound,
+   bits printed), and the last checkpoint restores the run's final state
+   bit for bit, bf16 leaves included. Then a float32 check at full width
+   with 2 layers: one step's grads through flash's ``autograd.Function``
+   under ``remat="block"`` against plain autograd through the chunk loop
+   under ``remat="none"``, each leaf within 1e-4 of its largest magnitude;
+   flash alone at one layer's shape (q (4, 4096, 16, 1, 64) bf16, chunk
+   1024): forward and backward ms, the bytes it keeps for backward (those
+   of q, k, v, out and lse, nothing else), and
+   ``scaled_dot_product_attention``'s forward + backward ms as a yardstick
+   (never on the path); last ``repro_torch.launch.train.main`` on the
+   reduced preset for 8 steps. The path launches none of the port's
+   kernels.
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   paths of phases 3, 3c, 3d, 3e, 3f, 3g, 3h and 3i (each must be > 0;
+   paths of phases 3, 3c, 3d, 3e, 3f, 3g, 3h, 3i and 3j (each must be > 0;
    the counts are set to 0 before each phase and read after it) and the
    numbers of phase 2, whose launch shapes include the serving, fleet and
    MoE routing ones.
@@ -160,9 +184,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -188,15 +216,28 @@ from repro_torch.kernels import spgemm_gustavson as gust_mod  # noqa: E402
 from repro_torch.kernels import spgemm_inner as inner_mod  # noqa: E402
 from repro_torch.kernels import spgemm_outer as outer_mod  # noqa: E402
 from repro_torch.kernels import spmm as spmm_mod  # noqa: E402
+from repro_torch.checkpoint import latest_step, restore  # noqa: E402
+from repro_torch.common.pytree import tree_map  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import DataConfig, TokenDataset  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.fleet import FaultPlan, FleetServer  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.models import flash as lm_flash  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.runtime import DriverConfig, TrainDriver  # noqa: E402
 from repro_torch.serve import cluster  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 from repro_torch.serve.router import Router  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    TrainConfig,
+    init_train_state,
+    make_loss_fn,
+    make_train_step,
+)
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the f32
 #: rate of the CUDA cores, the units the ported kernels compute on.
@@ -262,7 +303,20 @@ FAMILY_CHECKS = {
 ENCDEC_ARCH = "whisper-base"
 ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1500, 4, 60
 ENCDEC_CHECK_BATCH, ENCDEC_CHECK_TOKENS, ENCDEC_TOL = 2, 40, 3e-3
-#: The device phases 3h and 3i run on (a CPU rehearsal sets it to "cpu").
+#: Phase 3j: training at full width and depth (qwen1.5-0.5b, both JAX
+#: trainers' default arch) on train_4k's sequence length with its batch of
+#: 256 cut to 4 for one card; the synthetic data's seed is DataConfig's
+#: default. The float32 grad check: full width, 2 layers, (batch, seq) at
+#: two flash chunks, each leaf within 1e-4 of its largest magnitude. Flash
+#: alone at one layer's shape: q (B, S, KV, G, dh), JAX's chunk.
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_DATA_SEED = 4, 4096, 8, 1234
+TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 5, 2
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 2048
+TRAIN_GRAD_TOL = 1e-4
+FLASH_SHAPE, FLASH_CHUNK = (4, 4096, 16, 1, 64), 1024
+#: The device phases 3h, 3i and 3j run on (a CPU rehearsal sets it to
+#: "cpu").
 LM_DEVICE = "cuda"
 #: The kernel bodies that run each dataflow class's partitions.
 BODIES = {
@@ -1690,7 +1744,7 @@ def routing_case(label, weights, idx, summaries):
 
 def tree_bytes(tree) -> int:
     leaves = []
-    lm._tree_map(leaves.append, tree)
+    tree_map(leaves.append, tree)
     return nbytes(*leaves)
 
 
@@ -1714,7 +1768,7 @@ def block_flops(tree, tokens: int) -> float:
     """2 operations per weight per token over every block of ``tree``
     (attention scores and the scans not counted)."""
     leaves = []
-    lm._tree_map(leaves.append, {k: tree[k] for k in ("blocks", "tail")})
+    tree_map(leaves.append, {k: tree[k] for k in ("blocks", "tail")})
     return 2.0 * tokens * sum(t.numel() for t in leaves)
 
 
@@ -2125,6 +2179,323 @@ def lm_serving(cfg=None):
     return launches
 
 
+# ---------------------------------------------------------------- phase 3j
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers (bfloat16 and float32 compared by bits,
+    signed zeros and NaNs included)."""
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    return t
+
+
+def train_bound(cfg, params, batch, seq):
+    """The least time of one train step, by operations (the state read
+    and written once is a few ms of bytes): the bf16 matmuls, 6 per param
+    per token (the tied table as the head), the remat's second forward of
+    the blocks (2 per block param per token) and the loss chunks' head
+    recompute (2·d·V per token), at the bf16 tensor-core peak; then
+    flash's float32 einsums on the CUDA cores: 9 passes of 2·B·S²·H·dh in
+    every attention layer (2 forward, 2 in the remat, 5 in backward: the
+    scores again, dV, dP, dQ, dK), every chunk computed, masked or not, as
+    in JAX. Returns (bound ms, its parts)."""
+    tokens = batch * seq
+    leaves, block_leaves = [], []
+    tree_map(leaves.append, params)
+    tree_map(block_leaves.append, {k: params[k] for k in ("blocks", "tail")})
+    n, n_blocks = (sum(t.numel() for t in ls) for ls in (leaves,
+                                                         block_leaves))
+    n_attn = sum(k in lm.ATTENTION_KINDS for k in cfg.layer_kinds())
+    parts = {
+        "matmul_flops": 6.0 * n * tokens,
+        "remat_flops": 2.0 * n_blocks * tokens,
+        "loss_head_flops": 2.0 * cfg.d_model * lm.padded_vocab(cfg) * tokens,
+        "flash_f32_flops": 9 * n_attn * 2.0 * batch * seq * seq
+        * cfg.n_heads * cfg.d_head,
+    }
+    bf16 = parts["matmul_flops"] + parts["remat_flops"] + parts[
+        "loss_head_flops"]
+    parts["bf16_ms"] = bf16 / BF16_FLOPS_PER_S * 1e3
+    parts["flash_f32_ms"] = parts["flash_f32_flops"] / F32_FLOPS_PER_S * 1e3
+    return parts["bf16_ms"] + parts["flash_f32_ms"], parts
+
+
+def timed_step(step, state, batch):
+    """One train step, host clock ending in a synchronize; its metrics read
+    on the host."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, metrics = step(state, batch)
+    vals = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    return state, vals, (time.perf_counter() - t1) * 1e3
+
+
+def train_full_width(cfg):
+    """Phase 3j (a): ``cfg`` at full width and depth in bf16, trained on
+    the card: 8 steps overfitting one batch (the loss falls, every metric
+    finite), then the fault-tolerant driver twice from the same initial
+    state, once with a failure injected at step 5 (one restart, replay from
+    the step-4 checkpoint) and once without: the same final loss, and the
+    last checkpoint restores the run's final state bit for bit."""
+    dev = torch.device(LM_DEVICE)
+    model = build(cfg)
+    tcfg = TrainConfig(optimizer=AdamWConfig(warmup_steps=2))
+    ds = TokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                 seed=TRAIN_DATA_SEED))
+
+    def to_device(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state0 = init_train_state(model, tcfg,
+                              torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t1) * 1e3
+    state_bytes = tree_bytes(state0)
+    step = make_train_step(model, None, tcfg)
+    batch = to_device(ds.batch_at(0))
+    state, losses, times = state0, [], []
+    for i in range(TRAIN_STEPS):
+        state, vals, ms = timed_step(step, state, batch)
+        bad = sorted(k for k, v in vals.items() if not math.isfinite(v))
+        if bad:
+            raise AssertionError(f"train {cfg.name}: step {i} metrics {bad} "
+                                 f"not finite: {vals}")
+        losses.append(vals["loss"])
+        times.append(ms)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train {cfg.name}: the loss did not fall over "
+                             f"{TRAIN_STEPS} steps on one batch: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_run(lambda: step(state, batch), top=8)
+    del state
+    bound_ms, parts = train_bound(cfg, state0["params"], TRAIN_BATCH,
+                                  TRAIN_SEQ)
+    step_ms = statistics.median(times[2:])
+    log(f"train: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.dtype} params, mixed precision, remat {cfg.remat}, "
+        f"{state_bytes / 1e9:.3f} GB of train state; {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step; {TRAIN_STEPS} steps on one batch: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, every metric finite")
+    log("train measured: " + json.dumps({
+        "arch": cfg.name, "init_ms": init_ms, "step_ms": step_ms,
+        "step_ms_range": [min(times[2:]), max(times[2:])],
+        "step_ms_all": times, "losses": losses,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        "base_mb": base_mem / 2 ** 20,
+        "peak_mb_above_base": (peak - base_mem) / 2 ** 20,
+        "state_bytes": state_bytes, "step_bound_ms": bound_ms,
+        "bound_parts": parts}))
+    log(f"profile train {cfg.name} step: " + json.dumps(profile))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        last = {}
+
+        def kept(s, b):
+            s, m = step(s, b)
+            last["state"] = s
+            return s, m
+
+        def drive(name, fail_at):
+            d = TrainDriver(DriverConfig(total_steps=TRAIN_STEPS,
+                                         checkpoint_every=TRAIN_CKPT_EVERY,
+                                         checkpoint_dir=os.path.join(tmp,
+                                                                     name)),
+                            kept, ds, to_device)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            report = d.run(state0, fail_at=fail_at, device=dev)
+            torch.cuda.synchronize()
+            if latest_step(d.cfg.checkpoint_dir) != TRAIN_STEPS:
+                raise AssertionError(f"train driver {name}: latest "
+                                     "checkpoint is not the last step")
+            return report, (time.perf_counter() - t1) * 1e3
+
+        failed, failed_ms = drive("failed", {TRAIN_FAIL_AT: RuntimeError(
+            f"injected failure at step {TRAIN_FAIL_AT}")})
+        if failed.restarts != 1:
+            raise AssertionError(f"train driver: {failed.restarts} restarts "
+                                 "for one injected failure")
+        shutil.rmtree(os.path.join(tmp, "failed"))
+        clean, clean_ms = drive("clean", None)
+        a, b = failed.final_metrics["loss"], clean.final_metrics["loss"]
+        if abs(a - b) > 1e-6 * abs(b):
+            raise AssertionError(f"train driver: loss {a} after a restart, "
+                                 f"{b} without")
+        restored, manifest = restore(os.path.join(tmp, "clean"), state0,
+                                     device=dev)
+        n_leaves, n_bf16 = 0, 0
+
+        def same(x, y):
+            nonlocal n_leaves, n_bf16
+            n_leaves += 1
+            n_bf16 += x.dtype == torch.bfloat16
+            if x.dtype != y.dtype or not torch.equal(bits(x), bits(y)):
+                raise AssertionError("train checkpoint: a restored leaf "
+                                     "differs from the run's final state")
+
+        tree_map(same, restored, last["state"])
+        del restored, last
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"train driver: {TRAIN_STEPS} steps, checkpoint every "
+        f"{TRAIN_CKPT_EVERY}: a failure at step {TRAIN_FAIL_AT} -> "
+        f"{failed.restarts} restart, final loss {a!r}; without it {b!r} "
+        f"({'the same bits' if a == b else f'{abs(a - b) / abs(b):.3e} rel'}"
+        f"); step {manifest['step']}'s checkpoint restored bit for bit "
+        f"({n_leaves} leaves, {n_bf16} bf16)")
+    log("train driver measured: " + json.dumps({
+        "failed_run_ms": failed_ms, "clean_run_ms": clean_ms,
+        "restarts": failed.restarts, "stragglers": [failed.stragglers,
+                                                    clean.stragglers],
+        "final_loss": [a, b], "checkpoint_bytes": state_bytes}))
+
+
+def check_train_grads_f32(cfg):
+    """Phase 3j (b): ``cfg`` at full width with 2 layers in float32: one
+    train step's grads through flash's ``autograd.Function`` under
+    ``remat="block"`` against plain autograd through the forward-only chunk
+    loop under ``remat="none"``, each leaf within ``TRAIN_GRAD_TOL`` of its
+    largest magnitude."""
+    dev = torch.device(LM_DEVICE)
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              n_layers=TRAIN_CHECK_LAYERS)
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ + 1),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def plain_flash(q, k, v, causal, window, chunk, scale):
+        return lm_flash._fwd(q, k, v, causal, window, chunk, scale)[0]
+
+    def grads(remat, flash):
+        lfn = make_loss_fn(build(dataclasses.replace(cfg, remat=remat)),
+                           None, TrainConfig())
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = []
+        tree_map(leaves.append, live)
+        was = lm_layers.flash_attention
+        lm_layers.flash_attention = flash
+        try:
+            loss, _ = lfn(live, batch)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+        finally:
+            lm_layers.flash_attention = was
+
+    loss, got = grads("block", lm_flash.flash_attention)
+    want_loss, want = grads("none", plain_flash)
+    worst = 0.0
+    for g, w in zip(got, want):
+        worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+    if worst > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train f32 {cfg.name}: grads {worst:.3e} of "
+                             "their largest magnitude from plain autograd's")
+    log(f"train f32: {cfg.name} at full width, {cfg.n_layers} layers, "
+        f"{TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ} tokens: {len(got)} grad "
+        f"leaves through the Function and remat within {worst:.3e} of their "
+        f"largest magnitude from plain autograd through the chunk loop (tol "
+        f"{TRAIN_GRAD_TOL}); loss {float(loss)!r} against {float(want_loss)!r}")
+
+
+def flash_alone():
+    """Phase 3j (c): flash at one full-width layer's shape in bf16:
+    forward and backward ms, the bytes the Function keeps for backward
+    (exactly q, k, v, out, lse), and ``scaled_dot_product_attention``'s
+    forward + backward at the same shape as a yardstick (never on the
+    path)."""
+    dev = torch.device(LM_DEVICE)
+    b, s, kvh, g, dh = FLASH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(FLASH_SHAPE, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, kvh, dh), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale = dh ** -0.5
+
+    def fwd(*xs):
+        return lm_flash.flash_attention(*xs, True, None, FLASH_CHUNK, scale)
+
+    fwd_ms = time_ms(lambda: fwd(q, k, v), 3)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    kept = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda x: kept.append(nbytes(x)) or x, lambda x: x):
+        out = fwd(qg, kg, vg)
+    five = nbytes(q, k, v, out) + b * s * kvh * g * 4
+    if sum(kept) != five:
+        raise AssertionError(f"flash keeps {sum(kept)} bytes for backward, "
+                             f"not the {five} of q, k, v, out, lse")
+    dout = torch.randn(out.shape, generator=gen, device=dev,
+                       dtype=out.dtype)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dout, retain_graph=True), 3)
+    heads = [x.detach().reshape(b, s, -1, dh).transpose(1, 2)
+             .repeat_interleave(g if x is not q else 1, dim=1)
+             .requires_grad_() for x in (q, k, v)]
+    do_s = dout.reshape(b, s, -1, dh).transpose(1, 2)
+
+    def sdpa():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *heads, is_causal=True, scale=scale)
+        return torch.autograd.grad(o, heads, do_s)
+
+    sdpa_ms = time_ms(sdpa, 5)
+    pass_flops = 2.0 * b * s * s * kvh * g * dh
+    log("train flash measured: " + json.dumps({
+        "shape": list(FLASH_SHAPE), "chunk": FLASH_CHUNK,
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+        "saved_bytes": sum(kept), "saved_tensors": len(kept),
+        "forward_bound_ms": 2 * pass_flops / F32_FLOPS_PER_S * 1e3,
+        "backward_bound_ms": 5 * pass_flops / F32_FLOPS_PER_S * 1e3,
+        "sdpa_fwd_bwd_ms": sdpa_ms}))
+
+
+def launcher_run():
+    """Phase 3j (d): ``repro_torch.launch.train.main`` on the card, the
+    reduced preset for 8 steps."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    try:
+        t1 = time.perf_counter()
+        report = train_launch.main(["--preset", "reduced", "--steps", "8",
+                                    "--ckpt-dir", tmp],
+                                   device=torch.device(LM_DEVICE))
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if report.steps_run != 8 or not math.isfinite(
+            report.final_metrics["loss"]):
+        raise AssertionError(f"launcher: {report}")
+    log(f"train launcher: 8 reduced steps in {wall_ms:.1f} ms, final loss "
+        f"{report.final_metrics['loss']!r}")
+
+
+def lm_training(cfg=None):
+    """Phase 3j: training at full width (a), the float32 grads (b), flash
+    alone (c) and the launcher (d). Returns the kernels' launches (the
+    path runs none of the nine)."""
+    reset_counts()
+    cfg = cfg or get_config(TRAIN_ARCH)
+    train_full_width(cfg)
+    torch.cuda.empty_cache()
+    check_train_grads_f32(cfg)
+    torch.cuda.empty_cache()
+    flash_alone()
+    torch.cuda.empty_cache()
+    launcher_run()
+    torch.cuda.empty_cache()
+    return counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2388,10 +2759,17 @@ def main() -> int:
     log(f"phase 3i LM families: {time.perf_counter() - t0:.1f} s, "
         f"launches {family_launches}")
 
+    # ---- phase 3j: training at full width --------------------------------
+    t0 = time.perf_counter()
+    train_launches = lm_training()
+    log(f"phase 3j LM training: {time.perf_counter() - t0:.1f} s, "
+        f"launches {train_launches}")
+
     # ---- phase 4: the kernels line ---------------------------------------
     launches = {k: single_launches[k] + many_launches[k] + opt_launches[k]
                 + stream_launches[k] + serve_launches[k] + fleet_launches[k]
-                + lm_launches[k] + family_launches[k] for k in REPLACES}
+                + lm_launches[k] + family_launches[k] + train_launches[k]
+                for k in REPLACES}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]

@@ -1,5 +1,7 @@
 """Launch layer of the port: the multi-replica fleet launcher
-(``repro_torch.launch.fleet``), the port of ``repro.launch.fleet``.
+(``repro_torch.launch.fleet``), the port of ``repro.launch.fleet``, and
+the one-card training launcher (``repro_torch.launch.train``), the
+counterpart of ``repro.launch.train``.
 
 The JAX package's ``repro.launch`` also re-exports ``make_mesh``,
 ``make_production_mesh``, ``axis_sizes`` and ``batch_axes`` from
@@ -18,9 +20,10 @@ from repro_torch.launch.fleet import (
     fleet_result_to_json,
     fleet_trace_events,
 )
+from repro_torch.launch import train
 
 __all__ = [
     "Autoscaler", "FaultEvent", "FaultPlan", "FleetReport",
     "FleetRequestRecord", "FleetResult", "FleetServer",
-    "fleet_result_to_json", "fleet_trace_events",
+    "fleet_result_to_json", "fleet_trace_events", "train",
 ]

@@ -14,10 +14,13 @@ through a learned adapter.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common.pytree import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
@@ -70,18 +73,8 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype,
     return p
 
 
-def _tree_map(fn, *trees):
-    """Map ``fn`` over the leaves of dicts and lists of tensors."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
-
-
 def _index(tree, i: int):
-    return _tree_map(lambda t: t[i], tree)
+    return tree_map(lambda t: t[i], tree)
 
 
 def _stacked_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
@@ -89,11 +82,11 @@ def _stacked_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
     """``n`` blocks stacked along a leading axis, each written into the
     stack as it is drawn (one block's temporaries at a time)."""
     first = _init_block(gen, kind, cfg, dtype, with_cross)
-    stack = _tree_map(lambda t: t.new_empty((n, *t.shape)), first)
+    stack = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
     for r in range(n):
         block = (first if r == 0
                  else _init_block(gen, kind, cfg, dtype, with_cross))
-        _tree_map(lambda dst, src: dst[r].copy_(src), stack, block)
+        tree_map(lambda dst, src: dst[r].copy_(src), stack, block)
         del block
     return stack
 
@@ -165,7 +158,7 @@ def _gather_cache(cfg: ModelConfig, new: dict) -> dict:
     for si in range(len(period)):
         key = f"s{si}"
         per = [new[(key, i)] for i in range(n_periods)]
-        blocks[key] = _tree_map(lambda *xs: torch.stack(xs), *per)
+        blocks[key] = tree_map(lambda *xs: torch.stack(xs), *per)
     return {"blocks": blocks,
             "tail": [new[(None, ti)] for ti in range(len(tail))]}
 
@@ -201,6 +194,65 @@ def _apply_block(kind: str, p: dict, x, cfg, positions, aux, enc_kv=None):
 
 
 # ------------------------------------------------------------ full forward
+def _remat(body, cfg: ModelConfig):
+    """JAX's ``_maybe_remat`` around one period of blocks: ``"block"``
+    keeps only the period's inputs for backward and runs the period again
+    there (``torch.utils.checkpoint``, non-reentrant); ``"none"`` keeps
+    every activation. Without autograd (serving) the period runs once
+    either way. ``"block_save"`` and ``"block_save_moe"`` keep named
+    collective outputs of a sharded step; they come with the launch
+    slice."""
+    if cfg.remat not in ("none", "block"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: repro_torch runs 'none' and 'block'; the "
+            "'block_save' policies come with the launch tooling "
+            "(ROADMAP.md queue 1 item 3)")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return body
+    return functools.partial(checkpoint, body, use_reentrant=False)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` periods of a stacked slot tree, one ``unbind`` a leaf (its
+    backward stacks the grads once)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _cross_kv(enc_out, p: dict):
+    """A decoder block's cross K/V, projected from the encoder's output
+    inside the block (and its remat), as JAX's ``block_enc_kv`` does."""
+    if enc_out is None or "cross" not in p:
+        return None
+    return (torch.einsum("bsd,dhe->bshe", enc_out, p["cross"]["wk"]),
+            torch.einsum("bsd,dhe->bshe", enc_out, p["cross"]["wv"]))
+
+
+def _run_stack(cfg: ModelConfig, split, tree: dict, x, positions, aux,
+               enc_out=None):
+    """JAX's ``_scan_stack``: the stacked periods of ``split`` in order,
+    each under :func:`_remat`, then the tail blocks."""
+    n_periods, period, tail = split
+
+    def body(xc, auxc, bp, enc):
+        for si, kind in enumerate(period):
+            p = bp[f"s{si}"]
+            xc, auxc = _apply_block(kind, p, xc, cfg, positions, auxc,
+                                    _cross_kv(enc, p))
+        return xc, auxc
+
+    body = _remat(body, cfg)
+    slots = {k: _unstack(t, n_periods) for k, t in tree["blocks"].items()}
+    for i in range(n_periods):
+        x, aux = body(x, aux, {k: v[i] for k, v in slots.items()}, enc_out)
+    for kind, p in zip(tail, tree["tail"]):
+        x, aux = _apply_block(kind, p, x, cfg, positions, aux,
+                              _cross_kv(enc_out, p))
+    return x, aux
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, axes=None
            ) -> torch.Tensor:
     """Whisper-style encoder over stubbed frame embeddings (B, S_enc, D)."""
@@ -209,8 +261,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, axes=None
     x = torch.einsum("bsd,de->bse", frames.to(cfg.param_dtype),
                      enc["adapter"])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for kind, p, _, _ in _layers(_encoder_split(cfg), enc):
-        x, _ = _apply_block(kind, p, x, cfg, positions, None)
+    x, _ = _run_stack(cfg, _encoder_split(cfg), enc, x, positions, None)
     return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -224,6 +275,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     embeddings (VLM); 'frames' (B, S_enc, D) audio frames (enc-dec), whose
     encoding each decoder block projects to its cross K/V. The MoE aux
     loss sums over the MoE blocks (float32 zero for the other families).
+    Under autograd each period of blocks is recomputed in backward when
+    ``cfg.remat == "block"`` (JAX's default), the encoder's too.
     """
     L.check_axes(axes)
     check_supported(cfg)
@@ -237,12 +290,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         x = torch.cat([fr, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p, _, _ in _layers(cfg.pattern_split(), params):
-        enc_kv = None
-        if enc_out is not None and "cross" in p:
-            enc_kv = (torch.einsum("bsd,dhe->bshe", enc_out, p["cross"]["wk"]),
-                      torch.einsum("bsd,dhe->bshe", enc_out, p["cross"]["wv"]))
-        x, aux = _apply_block(kind, p, x, cfg, positions, aux, enc_kv)
+    x, aux = _run_stack(cfg, cfg.pattern_split(), params, x, positions, aux,
+                        enc_out)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.pytree import tree_map
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig, ShapeSpec
@@ -136,7 +137,7 @@ def _check_layout(tree, split, what: str) -> None:
                          f"{len(tail)} tail blocks")
     for slot, block in tree["blocks"].items():
         leads = set()
-        T._tree_map(lambda a: leads.add(np.shape(a)[0]), block)
+        tree_map(lambda a: leads.add(np.shape(a)[0]), block)
         if leads != {n_periods}:
             raise ValueError(f"params do not match {what}'s layout: slot "
                              f"{slot} stacks {sorted(leads)} periods; want "
@@ -160,4 +161,4 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     if tuple(np.shape(tree["embed"]["tok"])) != want:
         raise ValueError(f"embedding {np.shape(tree['embed']['tok'])}, "
                          f"want {want}")
-    return T._tree_map(lambda a: _tensor(a, dev), tree)
+    return tree_map(lambda a: _tensor(a, dev), tree)

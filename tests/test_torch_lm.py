@@ -20,6 +20,7 @@ import repro_torch.configs as tconfigs
 from repro.models import build as jbuild
 from repro.serve.engine import make_decode_step as jmake_decode_step
 from repro.serve.engine import make_prefill as jmake_prefill
+from repro_torch.common.pytree import tree_map
 from repro_torch.models import build as tbuild
 from repro_torch.models import params_from_numpy
 from repro_torch.models import transformer as tT
@@ -85,7 +86,7 @@ def close_tree(got, want, t):
     paths, shapes and dtypes, values within ``t``."""
     leaves = jax.tree.flatten_with_path(want)[0]
     n = []
-    tT._tree_map(n.append, got)
+    tree_map(n.append, got)
     assert len(n) == len(leaves)
     for path, v in leaves:
         g = node(got, path)
@@ -189,7 +190,7 @@ def test_prefill_with_cache_matches_jax(arch):
     close(got, want, tol(arch))
     close_tree(tc2, jc2, tol(arch))
     given = []
-    tT._tree_map(given.append, tc)
+    tree_map(given.append, tc)
     assert not any(t.any() for t in given)
     nxt = np.full((B, 1), 3, np.int32)
     want, _ = jax.jit(jmake_decode_step(jm, None))(
@@ -219,7 +220,7 @@ def test_every_arch_builds_with_jax_tree_and_dtypes(arch):
     want = jbuild(jconfigs.get_reduced(arch)).abstract_params()
     leaves = jax.tree.flatten_with_path(want)[0]
     n = []
-    tT._tree_map(n.append, tp)
+    tree_map(n.append, tp)
     assert len(n) == len(leaves)
     for path, v in leaves:
         g = node(tp, path)

@@ -329,7 +329,7 @@ def test_entry_points_default_to_the_card():
     # The LM zoo and its serving engine.
     from repro_torch.configs import get_reduced
     from repro_torch.models import build, params_from_numpy
-    from repro_torch.models import transformer as T
+    from repro_torch.common.pytree import tree_map
     from repro_torch.serve.engine import (
         greedy_generate,
         greedy_generate_reference,
@@ -339,7 +339,7 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init()
     params = model.init(device="cpu")
-    tree = T._tree_map(lambda t: t.numpy(), params)
+    tree = tree_map(lambda t: t.numpy(), params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(tree, model.cfg)
     assert params_from_numpy(tree, model.cfg, device="cpu")[

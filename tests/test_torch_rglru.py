@@ -16,7 +16,7 @@ import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
 from repro.models import rglru as jR
 from repro_torch.models import rglru as tR
-from repro_torch.models.transformer import _tree_map
+from repro_torch.common.pytree import tree_map
 from repro_torch.models.zoo import _tensor
 
 ARCH = "recurrentgemma-2b"
@@ -30,7 +30,7 @@ def block(dtype="float32", seed=0):
     tcfg = dataclasses.replace(tconfigs.get_reduced(ARCH), dtype=dtype)
     jp = jax.jit(lambda k: jR.init_rglru_block(k, jcfg, jcfg.param_dtype))(
         jax.random.PRNGKey(seed))
-    tp = _tree_map(lambda a: _tensor(np.asarray(a), CPU), jp)
+    tp = tree_map(lambda a: _tensor(np.asarray(a), CPU), jp)
     return jcfg, tcfg, jp, tp
 
 

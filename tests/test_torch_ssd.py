@@ -16,7 +16,7 @@ import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
 from repro.models import ssd as jS
 from repro_torch.models import ssd as tS
-from repro_torch.models.transformer import _tree_map
+from repro_torch.common.pytree import tree_map
 from repro_torch.models.zoo import _tensor
 
 ARCH = "mamba2-370m"
@@ -34,7 +34,7 @@ def block(dtype="float32", seed=0):
     jcfg, tcfg = cfgs(dtype)
     jp = jax.jit(lambda k: jS.init_mamba(k, jcfg, jcfg.param_dtype))(
         jax.random.PRNGKey(seed))
-    tp = _tree_map(lambda a: _tensor(np.asarray(a), CPU), jp)
+    tp = tree_map(lambda a: _tensor(np.asarray(a), CPU), jp)
     return jcfg, tcfg, jp, tp
 
 
