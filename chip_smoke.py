@@ -155,7 +155,9 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    metric finite) with init ms, step ms (host clock ending in a
    synchronize, median of steps 3-8 and its range), tokens/s and peak
    memory beside the step's bound, and one step under ``torch.profiler``;
-   then ``TrainDriver`` for 8 steps, a checkpoint every 2 into a fresh
+   then, at 2 layers deep (full width; ``TRAIN_DRIVER_LAYERS``: the full
+   depth's 6.5 GB npz checkpoints cost 30-48 s a run), ``TrainDriver`` for
+   8 steps, a checkpoint every 2 into a fresh
    temporary directory, with a failure injected at step 5 (one restart,
    the last checkpoint step 8), and again without it from the same initial
    state: the same final loss (within 1e-6 relative, the JAX test's bound,
@@ -169,13 +171,35 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    of q, k, v, out and lse, nothing else), and
    ``scaled_dot_product_attention``'s forward + backward ms as a yardstick
    (never on the path); last ``repro_torch.launch.train.main`` on the
-   reduced preset for 8 steps. The path launches none of the port's
-   kernels.
+   reduced preset for 8 steps (its mesh path on a 1x1 mesh). The path
+   launches none of the port's kernels.
+   3k. Sharding: (a) phase 3j's training (the same config, seed and batch)
+   through ``launch.train``'s mesh path on a ``DeviceMesh`` of one device
+   (NCCL, a world of 1): the state sharded by ``param_pspecs`` (every
+   placement ``Replicate``), ``grad_pspecs`` set; under ``remat="block"``
+   and ``"block_save"`` the first losses equal phase 3j's (bits printed);
+   for ``block_save`` step ms (median and range), peak memory, a profile
+   and the op analysis (``launch.op_analysis``) of one step on the card:
+   FLOPs by dtype, bytes, collectives, roofline terms and ``dominant``.
+   (b) gemma3-1b at full width and depth, a bf16 ``init_cache(1, 524288)``
+   (13.96 GB) filled before the position from a seed, 4 decode steps near
+   the end of the cache context-parallel (``cache_pspecs(seq_shard=True)``,
+   ``Axes(seq="data")``: the local scores and the max and sum all-reduces)
+   against plain ``decode_step``: with bf16 params timed against the
+   step's bound (cache and weights read once) with peak memory, the
+   logits within bf16's 2e-2 normwise; with float32 params within 2e-3
+   (``tests/test_sharded.py``'s bound). (c) ``python -m
+   repro_torch.launch.dryrun`` as subprocesses (started first, on the
+   host's cores): whisper-base x decode_32k on the 512-rank multipod mesh
+   and qwen1.5-0.5b x train_4k on the 256-rank pod, each ``ok`` with its
+   devices; their FLOPs, bytes, collectives by kind, ``dominant`` and
+   wall printed, the records under ``chiprun_out/dryrun``. The phase
+   launches none of the port's kernels.
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   paths of phases 3, 3c, 3d, 3e, 3f, 3g, 3h, 3i and 3j (each must be > 0;
-   the counts are set to 0 before each phase and read after it) and the
-   numbers of phase 2, whose launch shapes include the serving, fleet and
-   MoE routing ones.
+   paths of phases 3, 3c, 3d, 3e, 3f, 3g, 3h, 3i, 3j and 3k (each must be
+   > 0; the counts are set to 0 before each phase and read after it) and
+   the numbers of phase 2, whose launch shapes include the serving, fleet
+   and MoE routing ones.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -220,6 +244,9 @@ from repro_torch.checkpoint import latest_step, restore  # noqa: E402
 from repro_torch.common.pytree import tree_map  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, TokenDataset  # noqa: E402
+from repro_torch import sharding  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.launch import op_analysis  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.fleet import FaultPlan, FleetServer  # noqa: E402
 from repro_torch.models import build  # noqa: E402
@@ -315,8 +342,23 @@ TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 5, 2
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 2048
 TRAIN_GRAD_TOL = 1e-4
 FLASH_SHAPE, FLASH_CHUNK = (4, 4096, 16, 1, 64), 1024
-#: The device phases 3h, 3i and 3j run on (a CPU rehearsal sets it to
-#: "cpu").
+#: Phase 3j's driver runs (two runs of 8 steps, a checkpoint every 2) at
+#: full width and this depth: the npz checkpoints of the full depth (6.5 GB
+#: each) took 30-48 s a run; at 2 layers the tied table dominates.
+TRAIN_DRIVER_LAYERS = 2
+#: Phase 3k: phase 3j's training through the mesh path on a mesh of one
+#: device (the first steps' losses against phase 3j's, relative: a tolerance
+#: only if the bits differ); context-parallel decode of gemma3-1b, the arch
+#: of JAX's context-parallel test, at long_500k's cache (1 x 524288), its
+#: logits within tests/test_sharded.py's 2e-3 of plain decode; two
+#: dry-run cells (arch, shape, mesh, devices): JAX's one-cell test and the
+#: training arch's train cell.
+MESH_BLOCK_STEPS, MESH_SAVE_STEPS, MESH_LOSS_RTOL = 2, 5, 1e-6
+CP_ARCH, CP_S_MAX, CP_STEPS, CP_TOL = "gemma3-1b", 524288, 4, 2e-3
+DRYRUN_CELLS = (("whisper-base", "decode_32k", "multipod", 512),
+                ("qwen1.5-0.5b", "train_4k", "singlepod", 256))
+DRYRUN_TIMEOUT_S = 300
+#: The device phases 3h-3k run on (a CPU rehearsal sets it to "cpu").
 LM_DEVICE = "cuda"
 #: The kernel bodies that run each dataflow class's partitions.
 BODIES = {
@@ -2235,9 +2277,10 @@ def train_full_width(cfg):
     """Phase 3j (a): ``cfg`` at full width and depth in bf16, trained on
     the card: 8 steps overfitting one batch (the loss falls, every metric
     finite), then the fault-tolerant driver twice from the same initial
-    state, once with a failure injected at step 5 (one restart, replay from
-    the step-4 checkpoint) and once without: the same final loss, and the
-    last checkpoint restores the run's final state bit for bit."""
+    state at ``TRAIN_DRIVER_LAYERS`` deep, once with a failure injected at
+    step 5 (one restart, replay from the step-4 checkpoint) and once
+    without: the same final loss, and the last checkpoint restores the
+    run's final state bit for bit. Returns the 8 steps' losses."""
     dev = torch.device(LM_DEVICE)
     model = build(cfg)
     tcfg = TrainConfig(optimizer=AdamWConfig(warmup_steps=2))
@@ -2294,6 +2337,14 @@ def train_full_width(cfg):
         "bound_parts": parts}))
     log(f"profile train {cfg.name} step: " + json.dumps(profile))
 
+    # The driver runs at TRAIN_DRIVER_LAYERS deep (full width).
+    del state0
+    torch.cuda.empty_cache()
+    dmodel = build(dataclasses.replace(cfg, n_layers=TRAIN_DRIVER_LAYERS))
+    state0 = init_train_state(
+        dmodel, tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    ckpt_bytes = tree_bytes(state0)
+    step = make_train_step(dmodel, None, tcfg)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         last = {}
@@ -2345,7 +2396,8 @@ def train_full_width(cfg):
         del restored, last
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"train driver: {TRAIN_STEPS} steps, checkpoint every "
+    log(f"train driver: {dmodel.cfg.n_layers} layers at full width, "
+        f"{TRAIN_STEPS} steps, checkpoint every "
         f"{TRAIN_CKPT_EVERY}: a failure at step {TRAIN_FAIL_AT} -> "
         f"{failed.restarts} restart, final loss {a!r}; without it {b!r} "
         f"({'the same bits' if a == b else f'{abs(a - b) / abs(b):.3e} rel'}"
@@ -2355,7 +2407,9 @@ def train_full_width(cfg):
         "failed_run_ms": failed_ms, "clean_run_ms": clean_ms,
         "restarts": failed.restarts, "stragglers": [failed.stragglers,
                                                     clean.stragglers],
-        "final_loss": [a, b], "checkpoint_bytes": state_bytes}))
+        "final_loss": [a, b], "layers": dmodel.cfg.n_layers,
+        "checkpoint_bytes": ckpt_bytes}))
+    return losses
 
 
 def check_train_grads_f32(cfg):
@@ -2482,10 +2536,10 @@ def launcher_run():
 def lm_training(cfg=None):
     """Phase 3j: training at full width (a), the float32 grads (b), flash
     alone (c) and the launcher (d). Returns the kernels' launches (the
-    path runs none of the nine)."""
+    path runs none of the nine) and (a)'s losses."""
     reset_counts()
     cfg = cfg or get_config(TRAIN_ARCH)
-    train_full_width(cfg)
+    losses = train_full_width(cfg)
     torch.cuda.empty_cache()
     check_train_grads_f32(cfg)
     torch.cuda.empty_cache()
@@ -2493,6 +2547,298 @@ def lm_training(cfg=None):
     torch.cuda.empty_cache()
     launcher_run()
     torch.cuda.empty_cache()
+    return counts(), losses
+
+
+# ---------------------------------------------------------------- phase 3k
+def start_dryruns():
+    """Phase 3k (c), started first so that it runs on the host's cores
+    while the card works: one ``python -m repro_torch.launch.dryrun``
+    subprocess per cell of ``DRYRUN_CELLS``, each writing its record under
+    ``chiprun_out/dryrun``."""
+    import threading
+
+    out = ROOT / "chiprun_out" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mesh, _ in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(out)]
+        run = {"t0": time.perf_counter(), "proc": subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)}
+
+        def wait(run=run):
+            try:
+                run["err"] = run["proc"].communicate(
+                    timeout=DRYRUN_TIMEOUT_S)[1]
+            except subprocess.TimeoutExpired:
+                run["proc"].kill()
+                run["err"] = f"over {DRYRUN_TIMEOUT_S} s"
+                run["proc"].communicate()
+            run["wall_s"] = time.perf_counter() - run["t0"]
+
+        run["waiter"] = threading.Thread(target=wait, daemon=True)
+        run["waiter"].start()
+        procs.append(run)
+    return out, procs
+
+
+def finish_dryruns(out, procs):
+    """Phase 3k (c): each dry-run cell ends ``ok`` on its mesh's
+    ``devices``; its FLOPs, bytes, collectives by kind, ``dominant`` and
+    the subprocess's wall (start to exit), printed."""
+    for (arch, shape, mesh, devices), run in zip(DRYRUN_CELLS, procs):
+        run["waiter"].join()
+        proc, err, wall_s = run["proc"], run["err"], run["wall_s"]
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {arch} x {shape}: exit "
+                                 f"{proc.returncode}: {err[-2000:]}")
+        with open(out / mesh / f"{arch.replace('.', '_')}__{shape}.json") as f:
+            rec = json.load(f)
+        if not rec.get("ok") or rec["devices"] != devices:
+            raise AssertionError(f"dry run {arch} x {shape}: {rec}")
+        log(f"dryrun {mesh} {arch} x {shape}: ok on {rec['devices']} "
+            f"devices, {rec['flops_per_device']:.4e} FLOP and "
+            f"{rec['bytes_per_device']:.4e} bytes a device, dominant "
+            f"{rec['roofline']['dominant']}, subprocess {wall_s:.1f} s")
+        log("dryrun measured: " + json.dumps({
+            "arch": arch, "shape": shape, "mesh": mesh,
+            "subprocess_s": wall_s, "trace_s": rec["trace_s"],
+            "flops_per_device": rec["flops_per_device"],
+            "flops_by_dtype": rec["flops_by_dtype"],
+            "bytes_per_device": rec["bytes_per_device"],
+            "collective_ops": rec["collective"]["ops"],
+            "collective_result_bytes": rec["collective"]["result_bytes"],
+            "link_bytes_per_chip": rec["collective"]["ici_bytes_per_chip"],
+            "roofline": rec["roofline"], "memory": rec["memory"],
+            "model_flops_ratio": rec["model_flops_ratio"]}))
+
+
+def mesh_axes(mesh, **kw) -> lm_layers.Axes:
+    return lm_layers.Axes(batch=mesh_mod.batch_axes(mesh), model="model",
+                          fsdp="data",
+                          sizes=tuple(mesh_mod.axis_sizes(mesh).items()),
+                          **kw)
+
+
+def mesh_train(cfg, want_losses):
+    """Phase 3k (a): phase 3j's training, the same config, seed and batch,
+    through ``launch.train``'s mesh path on a ``DeviceMesh`` of one device
+    (the state sharded by ``param_pspecs`` and ``state_specs``, every
+    placement ``Replicate`` at size 1, the batch over the batch axes,
+    ``grad_pspecs`` set): under ``remat="block"`` and ``"block_save"`` the
+    first losses equal phase 3j's (bits printed); for ``block_save`` the
+    step ms, peak memory and busy share, and the op analysis of one step
+    on the card against the measured step."""
+    dev = torch.device(LM_DEVICE)
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), dev.type)
+    sizes = mesh_mod.axis_sizes(mesh)
+    axes = mesh_axes(mesh)
+    tcfg = TrainConfig(optimizer=AdamWConfig(warmup_steps=2))
+    ds = TokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                 seed=TRAIN_DATA_SEED))
+    bsh = sharding.NamedSharding(mesh, sharding.P(mesh_mod.batch_axes(mesh)))
+    batch = {k: sharding.shard_tensor(torch.from_numpy(v).to(dev), bsh)
+             for k, v in ds.batch_at(0).items()}
+    report = {}
+    for remat, n in (("block", MESH_BLOCK_STEPS), ("block_save",
+                                                   MESH_SAVE_STEPS)):
+        model = build(dataclasses.replace(cfg, remat=remat))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        state0 = init_train_state(
+            model, tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        pspecs = sharding.param_pspecs(state0["params"], sizes)
+        state = sharding.distribute(state0, sharding.named_shardings(
+            train_launch.state_specs(state0, pspecs), mesh))
+        del state0
+        step = make_train_step(model, axes, tcfg, grad_pspecs=pspecs)
+        losses, times = [], []
+        with mesh_mod.set_mesh(mesh):
+            for _ in range(n):
+                state, vals, ms = timed_step(step, state, batch)
+                losses.append(vals["loss"])
+                times.append(ms)
+            peak = torch.cuda.max_memory_allocated()
+            same = [a == b for a, b in zip(losses, want_losses)]
+            worst = max(abs(a - b) / abs(b)
+                        for a, b in zip(losses, want_losses))
+            if worst > MESH_LOSS_RTOL:
+                raise AssertionError(
+                    f"mesh train {remat}: losses {losses} against phase "
+                    f"3j's {want_losses[:n]} ({worst:.3e} rel)")
+            log(f"mesh train {remat}: {cfg.name} on a 1x1 DeviceMesh, "
+                f"{n} steps: losses {losses} against phase 3j's "
+                f"{want_losses[:n]}: "
+                + ("the same bits" if all(same) else
+                   f"{worst:.3e} rel (tol {MESH_LOSS_RTOL})"))
+            report[remat] = {"losses": losses,
+                             "loss_bits": [x.hex() for x in losses],
+                             "same_bits": same,
+                             "step_ms_all": times,
+                             "peak_mb_above_base": (peak - base_mem) / 2 ** 20}
+            if remat != "block_save":
+                del state
+                continue
+            profile = profile_run(lambda: step(state, batch), top=8)
+            counter = op_analysis.OpCounter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with counter:
+                step(state, batch)
+                torch.cuda.synchronize()
+            counted_ms = (time.perf_counter() - t1) * 1e3
+        del state
+        coll = op_analysis.collective_stats(counter)
+        flops = op_analysis.dot_flops(counter)
+        nbytes_ = op_analysis.memory_bytes(counter)
+        rl = op_analysis.roofline_terms(flops, nbytes_,
+                                        coll.ici_bytes_per_chip)
+        step_ms = statistics.median(times[1:])
+        log(f"mesh train block_save: step {step_ms:.2f} ms (median of steps "
+            f"2-{n}), busy {profile['device_busy_ms']:.1f} ms of "
+            f"{profile['wall_ms']:.1f}; op analysis of one step: "
+            f"{flops:.4e} FLOP {dict(counter.flops_by_dtype)}, "
+            f"{nbytes_:.4e} bytes, dominant {rl.dominant}")
+        report["block_save"].update({
+            "step_ms": step_ms,
+            "step_ms_range": [min(times[1:]), max(times[1:])],
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+            "profile": profile, "counted_step_ms": counted_ms,
+            "op_flops": flops, "op_flops_by_dtype": dict(
+                counter.flops_by_dtype),
+            "op_bytes": nbytes_, "op_collectives": coll.ops,
+            "op_peak_live_bytes": counter.peak_live,
+            "roofline_ms": {"compute": rl.compute_s * 1e3,
+                            "memory": rl.memory_s * 1e3,
+                            "collective": rl.collective_s * 1e3,
+                            "dominant": rl.dominant},
+            "top_bytes_ops": op_analysis.memory_breakdown(counter)[:6]})
+    log("mesh train measured: " + json.dumps(report))
+
+
+def seeded_cache(cache, pos: int, gen):
+    """``cache``'s K/V rows before ``pos`` drawn from N(0, 0.1²) in place,
+    as ``tests/test_sharded.py``'s context-parallel test fills its cache
+    (a leaf at a time: no float32 temporary)."""
+    def fill(t):
+        if t.ndim >= 4:
+            rows = t[..., :pos, :, :]
+            rows.copy_(torch.randn(rows.shape, generator=gen,
+                                   device=t.device, dtype=t.dtype) * 0.1)
+        return t
+
+    tree_map(fill, cache)
+    return cache
+
+
+def cp_decode(cfg, dtype: str, timed: bool):
+    """Phase 3k (b): ``cfg`` at full width and depth with ``dtype`` params,
+    a bf16 ``init_cache(1, CP_S_MAX)`` filled before the position from a
+    seed: ``CP_STEPS`` decode steps at positions past the sliding window
+    near the end of the cache, context-parallel (``cache_pspecs(seq_shard=
+    True)``, ``Axes(seq="data")`` on a one-device mesh: the shard's local
+    scores, the max and sum all-reduces) against plain ``decode_step`` on
+    the same cache. Returns (max |logit diff|, max |logit|, CP step ms,
+    plain step ms, peak MiB above base)."""
+    dev = torch.device(LM_DEVICE)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    pos0 = CP_S_MAX - CP_STEPS - 4
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cache = seeded_cache(model.init_cache(1, CP_S_MAX, dtype=torch.bfloat16,
+                                          device=dev), pos0, gen)
+    mesh = mesh_mod.make_mesh((1,), ("data",), dev.type)
+    axes = lm_layers.Axes(batch=(), model="model", fsdp="data", seq="data",
+                          sizes=tuple(mesh_mod.axis_sizes(mesh).items()))
+    csh = sharding.named_shardings(sharding.cache_pspecs(
+        cache, (), mesh_mod.axis_sizes(mesh), seq_shard=True), mesh)
+    cp_step = engine.make_decode_step(model, axes)
+    plain_step = engine.make_decode_step(model, None)
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    worst = scale = 0.0
+    cp_ms, plain_ms = [], []
+    with mesh_mod.set_mesh(mesh), torch.no_grad():
+        for i in range(CP_STEPS):
+            pos = torch.tensor([pos0 + i], device=dev, dtype=torch.int32)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref_lg, _ = plain_step(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            lg, new = cp_step(params, sharding.distribute(cache, csh), tok,
+                              pos)
+            lg = lg.full_tensor()
+            torch.cuda.synchronize()
+            cp_ms.append((time.perf_counter() - t1) * 1e3)
+            new = tree_map(lambda t: t.to_local(), new)
+            worst = max(worst, float((lg.float() - ref_lg.float()).abs()
+                                     .max()))
+            scale = max(scale, float(ref_lg.float().abs().max()))
+            cache = new
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    peak = torch.cuda.max_memory_allocated()
+    del cache, new, params
+    return (worst, scale, statistics.median(cp_ms[1:] if timed else cp_ms),
+            statistics.median(plain_ms[1:] if timed else plain_ms),
+            (peak - base_mem) / 2 ** 20, cp_ms, plain_ms)
+
+
+def long_context_decode(cfg):
+    """Phase 3k (b) twice: bf16 params (the card's serving dtype: timed,
+    the logits within bf16's normwise tolerance) and float32 params (the
+    same bf16 cache: the logits within ``CP_TOL`` of plain decode)."""
+    cache_bytes = (2 * cfg.n_layers * CP_S_MAX * cfg.n_kv_heads
+                   * cfg.d_head * 2)
+    weight_bytes = cfg.param_count() * 2
+    bound_ms = (cache_bytes + weight_bytes) / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for dtype, tol, norm in (("bfloat16", TOL["bfloat16"], True),
+                             ("float32", CP_TOL, False)):
+        worst, scale, cp, plain, peak, cps, plains = cp_decode(
+            cfg, dtype, dtype == "bfloat16")
+        lim = tol * max(1.0, scale) if norm else tol
+        if not worst <= lim:
+            raise AssertionError(f"cp decode {dtype}: logits {worst:.3e} "
+                                 f"from plain decode (tol {lim:.3e})")
+        log(f"cp decode: {cfg.name} {dtype} params, bf16 cache of "
+            f"{CP_S_MAX} positions ({cache_bytes / 1e9:.2f} GB), "
+            f"{CP_STEPS} steps near the end: logits within {worst:.3e} of "
+            f"plain decode (tol {lim:.3e}{', normwise' if norm else ''}); "
+            f"step {cp:.2f} ms (plain {plain:.2f}) against its "
+            f"{bound_ms:.2f} ms bound; peak {peak:.0f} MiB above base")
+        out[dtype] = {"max_abs_diff": worst, "max_abs_logit": scale,
+                      "tol": lim, "cp_step_ms": cp, "plain_step_ms": plain,
+                      "cp_ms_all": cps, "plain_ms_all": plains,
+                      "peak_mb_above_base": peak}
+    log("cp decode measured: " + json.dumps({
+        "arch": cfg.name, "s_max": CP_S_MAX, "cache_bytes": cache_bytes,
+        "weight_bytes_bf16": weight_bytes, "step_bound_ms": bound_ms, **out}))
+
+
+def lm_mesh(train_losses, cfg=None, cp_cfg=None):
+    """Phase 3k: the dry runs started (c), the mesh-path train step (a),
+    context-parallel decode at long_500k (b), the dry runs collected.
+    Returns the kernels' launches (the path runs none of the nine)."""
+    reset_counts()
+    out, procs = start_dryruns()
+    try:
+        mesh_train(cfg or get_config(TRAIN_ARCH), train_losses)
+        torch.cuda.empty_cache()
+        long_context_decode(cp_cfg or get_config(CP_ARCH))
+        torch.cuda.empty_cache()
+    finally:
+        mesh_mod.shutdown()
+    finish_dryruns(out, procs)
     return counts()
 
 
@@ -2761,15 +3107,21 @@ def main() -> int:
 
     # ---- phase 3j: training at full width --------------------------------
     t0 = time.perf_counter()
-    train_launches = lm_training()
+    train_launches, train_losses = lm_training()
     log(f"phase 3j LM training: {time.perf_counter() - t0:.1f} s, "
         f"launches {train_launches}")
+
+    # ---- phase 3k: sharding on a mesh, context parallelism, dry runs -----
+    t0 = time.perf_counter()
+    mesh_launches = lm_mesh(train_losses)
+    log(f"phase 3k mesh paths: {time.perf_counter() - t0:.1f} s, "
+        f"launches {mesh_launches}")
 
     # ---- phase 4: the kernels line ---------------------------------------
     launches = {k: single_launches[k] + many_launches[k] + opt_launches[k]
                 + stream_launches[k] + serve_launches[k] + fleet_launches[k]
                 + lm_launches[k] + family_launches[k] + train_launches[k]
-                for k in REPLACES}
+                + mesh_launches[k] for k in REPLACES}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]

@@ -4,7 +4,14 @@
 * save/restore the full train state (params, optimizer, step),
 * async save (the host snapshot is taken before ``save`` returns, then a
   background thread writes it),
-* restore places each leaf on the caller's device (JAX's ``shardings``).
+* restore places each leaf on the caller's mesh (``shardings``, a tree of
+  ``sharding.NamedSharding``: the elastic reshard, written under one mesh
+  and restored onto another) or device.
+
+A DTensor leaf is gathered whole (``full_tensor()``, a collective every
+rank joins) into the same npz; under a process group of more than one
+rank only rank 0 writes, and :meth:`AsyncCheckpointer.wait` ends with a
+barrier, so no rank reads a checkpoint before it lands.
 
 Keys are JAX's: dict keys and list indices joined by ``/``; the npz holds
 one array per leaf and ``manifest.json`` the step, the shard's name, the
@@ -22,6 +29,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.pytree import (
     key_str,
@@ -30,6 +39,7 @@ from repro_torch.common.pytree import (
     tree_map_with_path,
 )
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.sharding.specs import mesh_device, shard_tensor
 
 _BF16_BITS = np.dtype("V2")
 
@@ -39,6 +49,8 @@ def _host(leaf) -> np.ndarray:
     bfloat16 as 2-byte voids."""
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf)
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_BF16_BITS)
@@ -58,11 +70,23 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
             for path, leaf in tree_leaves_with_path(tree)}
 
 
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _writes() -> bool:
+    """This process writes checkpoints: rank 0, or no process group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(directory: str, state, step: int,
          extra: Optional[Dict[str, Any]] = None):
-    """Blocking save of ``state`` at ``step`` into ``directory``."""
-    os.makedirs(directory, exist_ok=True)
+    """Blocking save of ``state`` at ``step`` into ``directory`` (every
+    rank joins the gathers of DTensor leaves; rank 0 writes)."""
     flat = _flatten(state)
+    if not _writes():
+        return
+    os.makedirs(directory, exist_ok=True)
     shard_path = os.path.join(directory, f"step_{step:08d}.npz")
     tmp = shard_path + ".tmp.npz"
     np.savez(tmp, **flat)
@@ -87,11 +111,15 @@ def latest_step(directory: str) -> Optional[int]:
         return json.load(f)["step"]
 
 
-def restore(directory: str, like, device=None):
+def restore(directory: str, like, shardings=None, device=None):
     """Restore into the structure of ``like`` (a tree of tensors), each
-    leaf in its ``like`` leaf's dtype, on ``device`` (default: the card).
-    Returns (tree, manifest)."""
-    dev = resolve_device(device)
+    leaf in its ``like`` leaf's dtype. ``shardings`` (a matching tree of
+    ``sharding.NamedSharding``) lays each leaf out on its mesh, every rank
+    keeping its slice of the array it read; without it each leaf lands on
+    ``device`` (default: the card). Returns (tree, manifest)."""
+    dev = None if shardings is not None else resolve_device(device)
+    flat_sh = (dict(tree_leaves_with_path(shardings))
+               if shardings is not None else {})
     mpath = os.path.join(directory, "manifest.json")
     with open(mpath) as f:
         manifest = json.load(f)
@@ -102,9 +130,14 @@ def restore(directory: str, like, device=None):
             if arr.shape != tuple(leaf.shape):
                 raise ValueError(f"checkpoint leaf {key}: shape {arr.shape},"
                                  f" want {tuple(leaf.shape)}")
-            return _tensor(arr).to(device=dev, dtype=leaf.dtype)
+            if shardings is None:
+                return _tensor(arr).to(device=dev, dtype=leaf.dtype)
+            sh = flat_sh[path]
+            return shard_tensor(_tensor(arr).to(
+                device=mesh_device(sh.mesh), dtype=leaf.dtype), sh)
 
         return tree_map_with_path(one, like), manifest
+
 
 
 class AsyncCheckpointer:
@@ -120,6 +153,8 @@ class AsyncCheckpointer:
         ``state``'s tensors, in place or not, do not reach the file."""
         self.wait()
         host_state = tree_map(_host, state)  # snapshot
+        if not _writes():
+            return
         self._thread = threading.Thread(
             target=save, args=(self.directory, host_state, step, extra),
             daemon=True)
@@ -129,3 +164,5 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _world() > 1:
+            dist.barrier()

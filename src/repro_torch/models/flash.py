@@ -15,7 +15,9 @@ the inputs' dtypes. Plain torch einsums, not
 ``scaled_dot_product_attention``: the function must be JAX's, masked rows
 included. Under ``inference_mode`` (serving) the forward runs alone.
 
-Shapes: q (B, Sq, KV, G, dh) grouped queries; k/v (B, Sk, KV, dh).
+Shapes: q (B, Sq, KV, G, dh) grouped queries; k/v (B, Sk, KV, dh). The
+queries sit at positions ``q0 + [0, Sq)`` (``q0`` > 0 for one rank's
+slice of a sequence-sharded query, ``models/layers._sharded_flash``).
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ def _scores(q32, k_i, c0, chunk, q_pos, causal, window, scale):
     return torch.where(ok[None, :, None, None, :], s, NEG)
 
 
-def _fwd(q, k, v, causal, window, chunk, scale):
+def _fwd(q, k, v, causal, window, chunk, scale, q0=0):
     """(out in ``q``'s dtype, lse float32 (B, Sq, KV, G))."""
     b, sq, kvh, g, dh = q.shape
     sk = k.shape[1]
@@ -53,7 +55,7 @@ def _fwd(q, k, v, causal, window, chunk, scale):
     assert sk % chunk == 0, (sk, chunk)
     dev = q.device
     q32 = q.float()
-    q_pos = torch.arange(sq, device=dev)
+    q_pos = q0 + torch.arange(sq, device=dev)
     m = torch.full((b, sq, kvh, g), -torch.inf, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((b, sq, kvh, g), dtype=torch.float32, device=dev)
@@ -72,14 +74,14 @@ def _fwd(q, k, v, causal, window, chunk, scale):
     return (o / l_safe[..., None]).to(q.dtype), m + torch.log(l_safe)
 
 
-def _bwd(q, k, v, out, lse, dout, causal, window, chunk, scale):
+def _bwd(q, k, v, out, lse, dout, causal, window, chunk, scale, q0=0):
     """(dq, dk, dv) in the inputs' dtypes, GQA's G axis summed into dk and
     dv."""
     b, sq, kvh, g, dh = q.shape
     sk = k.shape[1]
     chunk = min(chunk, sk)
     q32 = q.float()
-    q_pos = torch.arange(sq, device=q.device)
+    q_pos = q0 + torch.arange(sq, device=q.device)
     do32 = dout.float()
     delta = (do32 * out.float()).sum(dim=-1)             # (b, sq, kvh, g)
     dq = torch.zeros((b, sq, kvh, g, dh), dtype=torch.float32,
@@ -104,24 +106,24 @@ def _bwd(q, k, v, out, lse, dout, causal, window, chunk, scale):
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, chunk, scale):
-        out, lse = _fwd(q, k, v, causal, window, chunk, scale)
+    def forward(ctx, q, k, v, causal, window, chunk, scale, q0):
+        out, lse = _fwd(q, k, v, causal, window, chunk, scale, q0)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, window, chunk, scale)
+        ctx.args = (causal, window, chunk, scale, q0)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _bwd(q, k, v, out, lse, dout, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, window: Optional[int], chunk: int,
-                    scale: float) -> torch.Tensor:
+                    scale: float, q0: int = 0) -> torch.Tensor:
     """Attention of ``q`` over ``k``/``v`` in ``q``'s dtype; scores, the
     running max and sum, the output and every gradient accumulate in
     float32. Differentiable in ``q``, ``k`` and ``v`` by the recompute
     backward."""
-    return _Flash.apply(q, k, v, causal, window, chunk, scale)
+    return _Flash.apply(q, k, v, causal, window, chunk, scale, q0)

@@ -54,9 +54,13 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg, axes=None
     Capacity is per sequence (C = max(8, int(S·k·cf/E))); each (token,
     choice) takes the next slot of its expert in token-major order, and
     those past the capacity drop (one-token decode never drops). Returns
-    (out (B, S, D), (weights (B·S, k), experts (B·S, k))).
+    (out (B, S, D), (weights (B·S, k), experts (B·S, k))). The output is
+    named ``moe_out`` for the remat policies. Under a mesh it runs only on
+    one device (:func:`~repro_torch.models.layers.check_unsharded`).
     """
-    L.check_axes(axes)
+    if axes is not None:
+        L.check_unsharded(axes, "the MoE capacity dispatch", x)
+        return L.on_local(moe_mlp, axes, p, x, cfg)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = max(8, int(s * k * cfg.capacity_factor / e))
@@ -99,7 +103,7 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg, axes=None
     gathered = out_buf[rows, slot].reshape(b, s, k, d)
     w = (w_r * keep.reshape(b, s, k)).to(gathered.dtype)
     out = torch.einsum("bskd,bsk->bsd", gathered, w)
-    return out, (weights, idx)
+    return L.checkpoint_name(out, "moe_out"), (weights, idx)
 
 
 def aux_load_balance_loss(weights: torch.Tensor, idx: torch.Tensor,

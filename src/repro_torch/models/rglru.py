@@ -76,7 +76,10 @@ def rglru_apply(p: dict, x: torch.Tensor, cfg, axes=None,
     sequence (the scan's last hidden state and the conv's left context),
     so serving prefills a prompt in one pass and continues with
     :func:`rglru_decode`."""
-    L.check_axes(axes)
+    if axes is not None:
+        L.check_unsharded(axes, "the RG-LRU block", x)
+        return L.on_local(rglru_apply, axes, p, x, cfg,
+                          return_state=return_state)
     xb = torch.einsum("bsd,dr->bsr", x, p["wx"])
     xb, conv_state = _causal_conv(xb, p["conv_w"], p["conv_b"],
                                   return_state=True)
@@ -104,7 +107,9 @@ def init_rglru_cache(cfg, batch: int, dtype, device=None) -> dict:
 def rglru_decode(p: dict, x: torch.Tensor, cache: dict, cfg, axes=None
                  ) -> Tuple[torch.Tensor, dict]:
     """One-token recurrent update. x (B, 1, D) -> (out, new cache)."""
-    L.check_axes(axes)
+    if axes is not None:
+        L.check_unsharded(axes, "the RG-LRU decode", x)
+        return L.on_local(rglru_decode, axes, p, x, cache, cfg)
     xb = torch.einsum("bsd,dr->bsr", x, p["wx"])
     xb, conv_state = _causal_conv(xb, p["conv_w"], p["conv_b"],
                                   state=cache["conv"])

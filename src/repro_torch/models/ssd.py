@@ -131,7 +131,10 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg, axes=None,
     :func:`mamba_decode`. A length that ``ssm_chunk`` does not divide
     takes the largest common divisor as its chunk (the same recurrence,
     smaller chunks)."""
-    L.check_axes(axes)
+    if axes is not None:
+        L.check_unsharded(axes, "the SSD mixer", x)
+        return L.on_local(mamba_apply, axes, p, x, cfg,
+                          return_state=return_state)
     bsz, s, _ = x.shape
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     proj = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
@@ -170,7 +173,9 @@ def init_mamba_cache(cfg, batch: int, dtype, device=None) -> dict:
 def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg, axes=None
                  ) -> Tuple[torch.Tensor, dict]:
     """One-token recurrent update. x (B, 1, D) -> (out, new cache)."""
-    L.check_axes(axes)
+    if axes is not None:
+        L.check_unsharded(axes, "the SSD decode", x)
+        return L.on_local(mamba_decode, axes, p, x, cache, cfg)
     bsz = x.shape[0]
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     proj = torch.einsum("bsd,dk->bsk", x, p["in_proj"])

@@ -11,6 +11,12 @@ period axis as JAX's ``_stack`` does. JAX scans the stacked periods; here
 a Python loop walks the leading axis, then the tail. The VLM and audio
 frontends are stubs, as in JAX: precomputed patch or frame embeddings
 through a learned adapter.
+
+``axes`` (an :class:`~repro_torch.models.layers.Axes`) runs a model
+sharded: params, inputs and caches are DTensors on one mesh (a plain
+leaf counts as replicated), and the layers place activations as JAX's
+sharding constraints do. The ``moe``, ``ssm`` and ``recurrent`` blocks run
+under a mesh of one device only (``layers.check_unsharded``).
 """
 from __future__ import annotations
 
@@ -18,7 +24,11 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.common.pytree import tree_map
 from repro_torch.models import layers as L
@@ -164,52 +174,72 @@ def _gather_cache(cfg: ModelConfig, new: dict) -> dict:
 
 
 # ------------------------------------------------------------ block apply
-def _ffn(p: dict, kind: str, h2: torch.Tensor, cfg: ModelConfig):
+def _ffn(p: dict, kind: str, h2: torch.Tensor, cfg: ModelConfig, axes):
     """The block's FFN: (out, (weights, experts)) for an MoE block, (out,
     None) for an MLP."""
     if _is_moe(cfg, kind):
-        return M.moe_mlp(p["ffn"], h2, cfg)
-    return L.mlp(p["ffn"], h2, cfg), None
+        return M.moe_mlp(p["ffn"], h2, cfg, axes)
+    return L.mlp(p["ffn"], h2, cfg, axes), None
 
 
-def _apply_block(kind: str, p: dict, x, cfg, positions, aux, enc_kv=None):
+def _apply_block(kind: str, p: dict, x, cfg, axes, positions, aux,
+                 enc_kv=None):
     if kind == "ssd":
         return x + S.mamba_apply(
-            p["mix"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg), aux
+            p["mix"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg,
+            axes), aux
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     if kind == "recurrent":
-        x = x + R.rglru_apply(p["rec"], h, cfg)
+        x = x + R.rglru_apply(p["rec"], h, cfg, axes)
     else:
         window = cfg.sliding_window if kind == "local" else None
-        x = x + L.attention(p["attn"], h, cfg, positions=positions,
+        x = x + L.attention(p["attn"], h, cfg, axes, positions=positions,
                             causal=(kind != "enc"), window=window)
     if "cross" in p and enc_kv is not None:
         hc = L.rmsnorm(x, p["norm_c"], cfg.norm_eps)
-        x = x + L.attention(p["cross"], hc, cfg, kv_override=enc_kv)
+        x = x + L.attention(p["cross"], hc, cfg, axes, kv_override=enc_kv)
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    y, routing = _ffn(p, kind, h2, cfg)
+    y, routing = _ffn(p, kind, h2, cfg, axes)
     if routing is not None:
-        aux = aux + M.aux_load_balance_loss(*routing, cfg.n_experts)
+        aux = aux + L.on_local(M.aux_load_balance_loss, axes, *routing,
+                               cfg.n_experts)
     return x + y, aux
 
 
 # ------------------------------------------------------------ full forward
+#: The outputs each remat policy keeps (JAX's ``save_only_these_names``).
+SAVED_NAMES = {"block_save": ("attn_out", "moe_out"),
+               "block_save_moe": ("moe_out",)}
+
+
+def _save_named(names, ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: save the outputs of the tag op
+    (``layers.checkpoint_name``) named in ``names``, recompute the rest."""
+    if op is L.TAG_OP and args[1] in names:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(body, cfg: ModelConfig):
     """JAX's ``_maybe_remat`` around one period of blocks: ``"block"``
     keeps only the period's inputs for backward and runs the period again
-    there (``torch.utils.checkpoint``, non-reentrant); ``"none"`` keeps
-    every activation. Without autograd (serving) the period runs once
-    either way. ``"block_save"`` and ``"block_save_moe"`` keep named
-    collective outputs of a sharded step; they come with the launch
-    slice."""
-    if cfg.remat not in ("none", "block"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: repro_torch runs 'none' and 'block'; the "
-            "'block_save' policies come with the launch tooling "
-            "(ROADMAP.md queue 1 item 3)")
+    there (``torch.utils.checkpoint``, non-reentrant); ``"block_save"``
+    also keeps the named post-collective outputs ``attn_out`` and
+    ``moe_out`` (``"block_save_moe"``: ``moe_out`` only), through
+    selective checkpointing, so backward takes them from memory instead of
+    recomputing them; ``"none"`` keeps every activation. Without autograd
+    (serving) the period runs once either way."""
+    if cfg.remat not in ("none", "block", *SAVED_NAMES):
+        raise ValueError(f"remat={cfg.remat!r}: one of 'none', 'block', "
+                         f"{', '.join(map(repr, SAVED_NAMES))}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return body
-    return functools.partial(checkpoint, body, use_reentrant=False)
+    if cfg.remat == "block":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    policy = functools.partial(_save_named, SAVED_NAMES[cfg.remat])
+    return functools.partial(
+        checkpoint, body, use_reentrant=False,
+        context_fn=lambda: create_selective_checkpoint_contexts(policy))
 
 
 def _unstack(tree, n: int) -> list:
@@ -221,17 +251,20 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _cross_kv(enc_out, p: dict):
+def _cross_kv(enc_out, p: dict, cfg: ModelConfig, axes):
     """A decoder block's cross K/V, projected from the encoder's output
     inside the block (and its remat), as JAX's ``block_enc_kv`` does."""
     if enc_out is None or "cross" not in p:
         return None
-    return (torch.einsum("bsd,dhe->bshe", enc_out, p["cross"]["wk"]),
-            torch.einsum("bsd,dhe->bshe", enc_out, p["cross"]["wv"]))
+    kv_ax = axes.tp(cfg.n_kv_heads) if axes else None
+    wk = L.uw(p["cross"]["wk"], axes, None, kv_ax, None, fsdp_dim=0)
+    wv = L.uw(p["cross"]["wv"], axes, None, kv_ax, None, fsdp_dim=0)
+    return (torch.einsum("bsd,dhe->bshe", enc_out, wk),
+            torch.einsum("bsd,dhe->bshe", enc_out, wv))
 
 
-def _run_stack(cfg: ModelConfig, split, tree: dict, x, positions, aux,
-               enc_out=None):
+def _run_stack(cfg: ModelConfig, axes, split, tree: dict, x, positions,
+               aux, enc_out=None):
     """JAX's ``_scan_stack``: the stacked periods of ``split`` in order,
     each under :func:`_remat`, then the tail blocks."""
     n_periods, period, tail = split
@@ -239,8 +272,8 @@ def _run_stack(cfg: ModelConfig, split, tree: dict, x, positions, aux,
     def body(xc, auxc, bp, enc):
         for si, kind in enumerate(period):
             p = bp[f"s{si}"]
-            xc, auxc = _apply_block(kind, p, xc, cfg, positions, auxc,
-                                    _cross_kv(enc, p))
+            xc, auxc = _apply_block(kind, p, xc, cfg, axes, positions, auxc,
+                                    _cross_kv(enc, p, cfg, axes))
         return xc, auxc
 
     body = _remat(body, cfg)
@@ -248,20 +281,33 @@ def _run_stack(cfg: ModelConfig, split, tree: dict, x, positions, aux,
     for i in range(n_periods):
         x, aux = body(x, aux, {k: v[i] for k, v in slots.items()}, enc_out)
     for kind, p in zip(tail, tree["tail"]):
-        x, aux = _apply_block(kind, p, x, cfg, positions, aux,
-                              _cross_kv(enc_out, p))
+        x, aux = _apply_block(kind, p, x, cfg, axes, positions, aux,
+                              _cross_kv(enc_out, p, cfg, axes))
     return x, aux
+
+
+def on_mesh(tree, axes, *others):
+    """``tree`` with every plain tensor leaf replicated on the mesh of the
+    call (``axes`` set); ``tree`` itself with ``axes=None``."""
+    if axes is None:
+        return tree
+    leaves = []
+    tree_map(leaves.append, (tree, others))
+    mesh = L.mesh_of(*leaves)
+    return tree_map(lambda t: L.replicate(t, mesh)
+                    if isinstance(t, torch.Tensor) else t, tree)
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, axes=None
            ) -> torch.Tensor:
     """Whisper-style encoder over stubbed frame embeddings (B, S_enc, D)."""
-    L.check_axes(axes)
+    frames = on_mesh(frames, axes, params)
     enc = params["encoder"]
     x = torch.einsum("bsd,de->bse", frames.to(cfg.param_dtype),
                      enc["adapter"])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, _ = _run_stack(cfg, _encoder_split(cfg), enc, x, positions, None)
+    x, _ = _run_stack(cfg, axes, _encoder_split(cfg), enc, x, positions,
+                      None)
     return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -278,24 +324,26 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     Under autograd each period of blocks is recomputed in backward when
     ``cfg.remat == "block"`` (JAX's default), the encoder's too.
     """
-    L.check_axes(axes)
     check_supported(cfg)
-    x = L.embed(params["embed"], batch["tokens"], cfg)
+    params = on_mesh(params, axes, batch)
+    batch = on_mesh(batch, axes, params)
+    x = L.embed(params["embed"], batch["tokens"], cfg, axes)
     enc_out = None
     if cfg.family == "encdec":
-        enc_out = encode(params, batch["frames"], cfg)
+        enc_out = encode(params, batch["frames"], cfg, axes)
     if cfg.frontend == "vision_stub":
         fr = torch.einsum("bsd,de->bse", batch["frontend"].to(x.dtype),
                           params["frontend"]["adapter"])
         x = torch.cat([fr, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x, aux = _run_stack(cfg, cfg.pattern_split(), params, x, positions, aux,
-                        enc_out)
+    aux = on_mesh(torch.zeros((), dtype=torch.float32, device=x.device),
+                  axes, x)
+    x, aux = _run_stack(cfg, axes, cfg.pattern_split(), params, x,
+                        positions, aux, enc_out)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux
-    return L.logits(params["embed"], x, cfg), aux
+    return L.logits(params["embed"], x, cfg, axes), aux
 
 
 # ---------------------------------------------------------------- caches
@@ -331,31 +379,51 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
             "tail": [one(kind) for kind in tail]}
 
 
-def _decode_block(kind: str, p: dict, c: dict, x, pos, cfg):
+def _decode_block(kind: str, p: dict, c: dict, x, pos, cfg, axes):
     if kind == "ssd":
         y, c2 = S.mamba_decode(
-            p["mix"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), c, cfg)
+            p["mix"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), c, cfg, axes)
         return x + y, c2
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     if kind == "recurrent":
-        y, c2 = R.rglru_decode(p["rec"], h, c, cfg)
+        y, c2 = R.rglru_decode(p["rec"], h, c, cfg, axes)
     else:
         window = cfg.sliding_window if kind == "local" else None
         y, k2, v2 = L.decode_attention(p["attn"], h, c["k"], c["v"], pos,
-                                       cfg, window=window)
+                                       cfg, axes, window=window)
         c2 = dict(c, k=k2, v=v2)
     x = x + y
     if "cross" in p and "ck" in c:
         hc = L.rmsnorm(x, p["norm_c"], cfg.norm_eps)
         yc, _, _ = L.decode_attention(p["cross"], hc, c["ck"], c["cv"], pos,
-                                      cfg, cross=True)
+                                      cfg, axes, cross=True)
         x = x + yc
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    y, _ = _ffn(p, kind, h2, cfg)
+    y, _ = _ffn(p, kind, h2, cfg, axes)
     return x + y, c2
 
 
-def _prefill_block(kind: str, p: dict, c: dict, x, positions, cfg):
+def _write_prefix(cache, kv, axes):
+    """A copy of ``cache`` (B, S_max, KV, dh) with ``kv`` (B, S, KV, dh)
+    written at rows ``[0, S)``; under a mesh on each rank's slice of the
+    cache (its batch or sequence shard)."""
+    if axes is None:
+        out = cache.clone()
+        out[:, :kv.shape[1]] = kv.to(out.dtype)
+        return out
+    mesh = L.mesh_of(cache, kv)
+    cache = L.replicate(cache, mesh)
+    cpl = cache.placements
+    kv = L.replicate(kv, mesh).redistribute(mesh, L._row_placements(cpl))
+    out = cache.to_local().clone()
+    off = L._seq_offset(mesh, cpl, out.shape[1])
+    lo, hi = off, min(off + out.shape[1], kv.shape[1])
+    if hi > lo:
+        out[:, :hi - lo] = kv.to_local()[:, lo:hi].to(out.dtype)
+    return L.from_local(out, mesh, cpl)
+
+
+def _prefill_block(kind: str, p: dict, c: dict, x, positions, cfg, axes):
     """Full-sequence twin of :func:`_decode_block`: the block output for
     the whole prompt in parallel, plus the decode cache after it (K/V
     written at positions ``[0, S)``, as the per-token decode writes them:
@@ -364,27 +432,24 @@ def _prefill_block(kind: str, p: dict, c: dict, x, positions, cfg):
     if kind == "ssd":
         y, st = S.mamba_apply(p["mix"],
                               L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg,
-                              return_state=True)
+                              axes, return_state=True)
         return x + y, {"h": st["h"], "conv": st["conv"].to(c["conv"].dtype)}
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     if kind == "recurrent":
-        y, st = R.rglru_apply(p["rec"], h, cfg, return_state=True)
+        y, st = R.rglru_apply(p["rec"], h, cfg, axes, return_state=True)
         x = x + y
         c2 = {"h": st["h"], "conv": st["conv"].to(c["conv"].dtype)}
     else:
         window = cfg.sliding_window if kind == "local" else None
-        x = x + L.attention(p["attn"], h, cfg, positions=positions,
+        x = x + L.attention(p["attn"], h, cfg, axes, positions=positions,
                             causal=True, window=window)
-        _, k, v = L.qkv_project(p["attn"], h, cfg)
+        _, k, v = L.qkv_project(p["attn"], h, cfg, axes)
         cos, sin = L.rope_angles(positions, cfg.d_head, cfg.rope_theta)
-        k = L.apply_rope(k, cos, sin)
-        s = k.shape[1]
-        k2, v2 = c["k"].clone(), c["v"].clone()
-        k2[:, :s] = k.to(k2.dtype)
-        v2[:, :s] = v.to(v2.dtype)
-        c2 = dict(c, k=k2, v=v2)
+        k = L.apply_rope(k, *on_mesh((cos, sin), axes, k))
+        c2 = dict(c, k=_write_prefix(c["k"], k, axes),
+                  v=_write_prefix(c["v"], v, axes))
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    y, _ = _ffn(p, kind, h2, cfg)
+    y, _ = _ffn(p, kind, h2, cfg, axes)
     return x + y, c2
 
 
@@ -400,20 +465,21 @@ def prefill_with_cache(params, cache: dict, tokens: torch.Tensor,
     Decoder-only families; enc-dec prefill goes through
     ``serve.engine.prefill_encdec_cache``.
     """
-    L.check_axes(axes)
     check_supported(cfg)
     if cfg.family == "encdec":
         raise NotImplementedError(
             "prefill_with_cache covers decoder-only families; use "
             "prefill_encdec_cache + decode_step for enc-dec models")
+    params = on_mesh(params, axes, cache, tokens)
+    cache = on_mesh(cache, axes, params)
     s = tokens.shape[1]
-    x = L.embed(params["embed"], tokens, cfg)
+    x = L.embed(params["embed"], tokens, cfg, axes)
     positions = torch.arange(s, device=x.device)[None, :]
     new = {}
     for kind, p, c, slot in _layers(cfg.pattern_split(), params, cache):
-        x, new[slot] = _prefill_block(kind, p, c, x, positions, cfg)
+        x, new[slot] = _prefill_block(kind, p, c, x, positions, cfg, axes)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    lg = L.logits(params["embed"], x[:, -1:, :], cfg)
+    lg = L.logits(params["embed"], x[:, -1:, :], cfg, axes)
     return lg, _gather_cache(cfg, new)
 
 
@@ -423,19 +489,22 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
     a new cache). Where the model has an attention cache, every ``pos``
     must lie inside it (one host read of ``pos``); JAX's
     dynamic-update-slice would clamp it silently. A model with recurrent
-    state only bounds no position, as in JAX."""
-    L.check_axes(axes)
+    state only bounds no position, as in JAX; nor does an abstract call,
+    whose ``pos`` has no values (``meta``)."""
     check_supported(cfg)
     s_max = _cache_len(cache)
-    if s_max is not None and bool(((pos < 0) | (pos >= s_max)).any()):
+    if (s_max is not None and not pos.is_meta
+            and bool(((pos < 0) | (pos >= s_max)).any())):
         raise ValueError(f"decode position {pos.tolist()} outside the "
                          f"cache of {s_max} positions")
-    x = L.embed(params["embed"], tokens, cfg)
+    params = on_mesh(params, axes, cache, tokens)
+    cache = on_mesh(cache, axes, params)
+    x = L.embed(params["embed"], tokens, cfg, axes)
     new = {}
     for kind, p, c, slot in _layers(cfg.pattern_split(), params, cache):
-        x, new[slot] = _decode_block(kind, p, c, x, pos, cfg)
+        x, new[slot] = _decode_block(kind, p, c, x, pos, cfg, axes)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return L.logits(params["embed"], x, cfg), _gather_cache(cfg, new)
+    return L.logits(params["embed"], x, cfg, axes), _gather_cache(cfg, new)
 
 
 def _cache_len(cache: dict) -> Optional[int]:

@@ -6,8 +6,8 @@ package's params into the port.
 ``Model.init`` and :func:`params_from_numpy` are entry points: they put
 the params on the card unless the caller passes ``device="cpu"``.
 ``forward``, ``decode_step`` and the serving functions run where their
-tensors lie. JAX's ``abstract_params`` (an ``eval_shape``) has no
-counterpart.
+tensors lie. ``abstract_params`` (JAX's ``eval_shape`` of ``init``) gives
+the params on the ``meta`` device, with no storage.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import tree_leaves, tree_map
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig, ShapeSpec
@@ -39,6 +39,17 @@ class Model:
             raise ValueError(f"generator on {generator.device}, params "
                              f"asked for on {dev}")
         return T.init_params(self.cfg, generator)
+
+    def abstract_params(self, generator: Optional[torch.Generator] = None
+                        ) -> dict:
+        """The params' tree, shapes and dtypes on the ``meta`` device with
+        no storage (``init`` traced under ``FakeTensorMode``)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            tree = T.init_params(self.cfg, generator or torch.Generator())
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), tree)
 
     # -------------------------------------------------------------- shapes
     def text_len(self, seq_len: int) -> int:
@@ -144,11 +155,19 @@ def _check_layout(tree, split, what: str) -> None:
                              f"{n_periods}")
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
+def params_from_numpy(tree, cfg: ModelConfig, device=None,
+                      shardings=None) -> dict:
     """The JAX package's params (``jax.tree.map(np.asarray, params)``) as
     the port's: the same nesting (dicts, the ``tail`` lists) and dtypes, on
-    ``device`` (default: the card). Checks the tree against ``cfg``'s
-    block layout, the encoder's included."""
+    ``device`` (default: the card), or, with ``shardings`` (a matching tree
+    of ``sharding.NamedSharding``), as DTensors on their mesh, each rank
+    keeping its slice. Checks the tree against ``cfg``'s block layout, the
+    encoder's included."""
+    if shardings is not None:
+        from repro_torch.sharding import distribute, mesh_device
+
+        dev = mesh_device(tree_leaves(shardings)[0].mesh)
+        return distribute(params_from_numpy(tree, cfg, dev), shardings)
     dev = resolve_device(device)
     _check_layout(tree, cfg.pattern_split(), cfg.name)
     if (cfg.family == "encdec") != ("encoder" in tree):

@@ -17,7 +17,9 @@ elsewhere. Here, as in JAX:
   the new params are cast back to each param's dtype.
 
 Scalars are float32 tensors on the params' device; nothing reads them on
-the host.
+the host. The leaves may be DTensors (a sharded step): every op is
+DTensor's, so the global norm's sums of squares, partial on each shard,
+are all-reduced before the square root.
 """
 from __future__ import annotations
 
@@ -59,8 +61,7 @@ def init_state(cfg: AdamWConfig, params) -> dict:
     """Step 0 (int32), zero float32 moments and, with ``mixed_precision``,
     float32 master copies, on the params' device."""
     dev = tree_leaves(params)[0].device
-    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                    device=p.device)
+    zeros32 = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     state = {
         "step": torch.zeros((), dtype=torch.int32, device=dev),
         "m": tree_map(zeros32, params),
@@ -81,7 +82,9 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """The float32 scalar ``x`` as a tensor of ``like``'s kind (a
+    replicated DTensor beside one)."""
+    return torch.full_like(like, x, dtype=torch.float32)
 
 
 def apply_updates(cfg: AdamWConfig, params, grads, state,

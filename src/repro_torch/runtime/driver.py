@@ -55,22 +55,24 @@ class TrainDriver:
         self.stragglers: List[int] = []
         self._times: List[float] = []
 
-    def _maybe_restore(self, state, device):
+    def _maybe_restore(self, state, shardings=None, device=None):
         step = latest_step(self.cfg.checkpoint_dir)
         if step is None:
             return state, 0
-        restored, manifest = restore(self.cfg.checkpoint_dir, state, device)
+        restored, manifest = restore(self.cfg.checkpoint_dir, state,
+                                     shardings, device)
         return restored, int(manifest["step"])
 
     def run(self, state, fail_at: Optional[Dict[int, Exception]] = None,
-            device=None) -> DriverReport:
+            shardings=None, device=None) -> DriverReport:
         """Run to total_steps. ``fail_at`` maps step->exception for fault
-        injection (tests). A restored checkpoint lands on ``device``
-        (default: the card)."""
+        injection (tests). A restored checkpoint lands on the mesh of
+        ``shardings`` (a tree of ``sharding.NamedSharding`` matching the
+        state) or, without it, on ``device`` (default: the card)."""
         fail_at = dict(fail_at or {})
         restarts = 0
         metrics: Dict[str, float] = {}
-        state, start = self._maybe_restore(state, device)
+        state, start = self._maybe_restore(state, shardings, device)
         step = start
         while step < self.cfg.total_steps:
             try:
@@ -92,7 +94,7 @@ class TrainDriver:
                     raise
                 # Recover from the last durable checkpoint and replay.
                 self.ckpt.wait()
-                state, step = self._maybe_restore(state, device)
+                state, step = self._maybe_restore(state, shardings, device)
         self.ckpt.save(state, step)
         self.ckpt.wait()
         return DriverReport(steps_run=step - start, restarts=restarts,

@@ -7,8 +7,11 @@ copies of the param leaves, so a step writes no tensor of the state it is
 given and returns a new one, as JAX's does. Grads come in each param's
 dtype (bf16 for bf16 params), as in JAX; microbatched accumulation runs in
 float32 and then reports zero ``aux`` and ``tokens``, as JAX's scan does.
-The step runs where the state's tensors lie. The pod-axis all-reduce and
-``grad_pspecs`` (sharded steps) come with the sharding slice.
+The step runs where the state's tensors lie. Under a mesh (``axes`` set,
+the state and batch DTensors) ``grad_pspecs`` pins the grads and the
+microbatch accumulator to the params' stored layout, and
+``tcfg.pod_axis`` averages the grads over the pod mesh dim by an
+explicit all-reduce (JAX's ``pmean``); the metrics come back whole.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.pytree import tree_map
 from repro_torch.kernels.ops import resolve_device
@@ -31,6 +35,7 @@ from repro_torch.optim import (
     init_error,
     init_state,
 )
+from repro_torch.sharding.specs import to_placements
 from repro_torch.train.loss import xent_chunked
 
 
@@ -41,24 +46,23 @@ class TrainConfig:
     microbatches: int = 1
     xent_chunk: int = 512
     aux_weight: float = 0.01          # MoE load-balance weight
-    # Explicit cross-pod pmean of a sharded step; must be None on one card.
+    # Explicit cross-pod pmean of a sharded step (a mesh axis name).
     pod_axis: Optional[str] = None
 
 
 def make_loss_fn(model: Model, axes, tcfg: TrainConfig):
     """fn(params, batch) -> (loss, {"nll", "aux", "tokens"})."""
-    L.check_axes(axes)
     cfg = model.cfg
 
     def fn(params, batch):
-        hidden, aux = T.forward(params, batch, cfg, return_hidden=True)
+        hidden, aux = T.forward(params, batch, cfg, axes, return_hidden=True)
         labels = batch["labels"]
         if hidden.shape[1] != labels.shape[1]:
             # frontend prefix (VLM) carries no labels
             hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
 
         def logits_fn(hc):
-            return L.logits(params["embed"], hc, cfg)
+            return L.logits(params["embed"], hc, cfg, axes)
 
         nll, count = xent_chunked(hidden, labels, logits_fn,
                                   chunk=tcfg.xent_chunk)
@@ -88,7 +92,53 @@ def _value_and_grad(lfn):
 
 
 def _or_zeros(g, p):
-    return torch.zeros_like(p, requires_grad=False) if g is None else g
+    """``p``'s grad: zeros where the loss does not reach it; a DTensor
+    grad in ``p``'s placements (DTensor leaves the grad of a replicated
+    leaf used on sharded activations as a partial sum)."""
+    if g is None:
+        return torch.zeros_like(p, requires_grad=False)
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _microbatches(batch: dict, mb: int, axes) -> list:
+    """The ``mb`` microbatches of ``batch``: consecutive slices of its
+    leading dim (JAX's reshape to (mb, B/mb, ...)); under a mesh each one
+    laid out over the batch axes again."""
+    if axes is None:
+        parts = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])
+                 for k, v in batch.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(mb)]
+    out = []
+    for i in range(mb):
+        mbatch = {}
+        for k, v in batch.items():
+            v = L.replicate(v, L.mesh_of(v, *batch.values()))
+            full = v.redistribute(v.device_mesh,
+                                  to_placements((), v.device_mesh))
+            n = v.shape[0] // mb
+            mbatch[k] = L.sc(full[i * n:(i + 1) * n], axes, axes.batch)
+        out.append(mbatch)
+    return out
+
+
+def _pod_mean(g, axis: str):
+    """JAX's ``pmean(g, axis)`` of a grad replicated over the mesh dim
+    ``axis``: an all-reduce (avg) over that dim of each rank's slice."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = g.device_mesh
+    dim = mesh.mesh_dim_names.index(axis)
+    if g.placements[dim].is_shard():
+        raise ValueError(f"a grad sharded over {axis!r}: pmean wants it "
+                         "replicated there")
+    return L.from_local(funcol.all_reduce(g.to_local(), "avg", (mesh, dim)),
+                        mesh, g.placements)
+
+
+def _whole(v):
+    return v.full_tensor() if isinstance(v, DTensor) else v
 
 
 def make_train_step(model: Model, axes, tcfg: TrainConfig,
@@ -96,34 +146,38 @@ def make_train_step(model: Model, axes, tcfg: TrainConfig,
     """Returns train_step(state, batch) -> (state, metrics).
 
     state = {"params", "opt", "error"(compression residual)}; batch holds
-    tensors where the state lies. ``grad_pspecs`` and ``tcfg.pod_axis``
-    pin and reduce grads across a mesh; one card has none, so both must be
-    None.
+    tensors where the state lies, DTensors under a mesh (``axes`` set).
+    ``grad_pspecs`` (a spec tree matching params) pins gradients and the
+    micro-batch accumulator to the params' stored layout;
+    ``tcfg.pod_axis`` averages the grads over that mesh axis. Both need
+    ``axes``.
     """
-    if grad_pspecs is not None or tcfg.pod_axis is not None:
-        raise NotImplementedError(
-            "grad_pspecs and pod_axis shard the step across a mesh; "
-            "repro_torch trains on one card (the sharding slice, ROADMAP.md "
-            "queue 1 item 3)")
+    if axes is None and (grad_pspecs is not None
+                         or tcfg.pod_axis is not None):
+        raise ValueError("grad_pspecs and pod_axis place grads on a mesh: "
+                         "pass axes (and DTensor state)")
     grad_fn = _value_and_grad(make_loss_fn(model, axes, tcfg))
+
+    def pin(grads):
+        if grad_pspecs is None:
+            return grads
+        return tree_map(lambda g, s: g.redistribute(
+            g.device_mesh, to_placements(s, g.device_mesh)),
+            grads, grad_pspecs)
 
     def compute_grads(params, batch):
         if tcfg.microbatches <= 1:
             (loss, metrics), grads = grad_fn(params, batch)
-            return loss, metrics, grads
+            return loss, metrics, pin(grads)
         # Gradient accumulation: split batch on the leading dim.
         mb = tcfg.microbatches
-        parts = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])
-                 for k, v in batch.items()}
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=batch["tokens"].device)
-        for i in range(mb):
-            (loss, _), grads = grad_fn(params,
-                                       {k: v[i] for k, v in parts.items()})
-            acc = tree_map(torch.add, acc, grads)
-            loss_sum = loss_sum + loss
+        acc = pin(tree_map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32), params))
+        loss_sum = None
+        for part in _microbatches(batch, mb, axes):
+            (loss, _), grads = grad_fn(params, part)
+            acc = pin(tree_map(torch.add, acc, pin(grads)))
+            loss_sum = loss if loss_sum is None else loss_sum + loss
         inv = 1.0 / mb
         grads = tree_map(lambda g: g * inv, acc)
         loss = loss_sum * inv
@@ -136,9 +190,14 @@ def make_train_step(model: Model, axes, tcfg: TrainConfig,
         if tcfg.compressor.kind != "none":
             grads, error = compress_with_feedback(
                 tcfg.compressor, grads, error)
+        if tcfg.pod_axis is not None:
+            # Cross-pod DP gradient all-reduce (DCN); in-pod reductions are
+            # DTensor's own, from the batch sharding.
+            grads = tree_map(lambda g: _pod_mean(g, tcfg.pod_axis), grads)
         params, opt, opt_metrics = apply_updates(
             tcfg.optimizer, params, grads, opt)
-        metrics = dict(metrics, loss=loss, **opt_metrics)
+        metrics = {k: _whole(v)
+                   for k, v in dict(metrics, loss=loss, **opt_metrics).items()}
         return {"params": params, "opt": opt, "error": error}, metrics
 
     return train_step

@@ -1,8 +1,9 @@
-"""The port's one-card training launcher (``repro_torch.launch.train``)
-against ``repro.launch.train``: the same flags with the same defaults and
-choices, ``--mesh`` limited to one device, and ``main`` training reduced
-configs on the CPU through the driver (enc-dec and VLM archs with their
-frame and patch inputs)."""
+"""The port's training launcher (``repro_torch.launch.train``) against
+``repro.launch.train``: the same flags with the same defaults and choices,
+``--mesh`` parsed to JAX's axis names, and ``main`` training reduced
+configs on the CPU through the driver on a mesh of one device (enc-dec and
+VLM archs with their frame and patch inputs). The (2, 4) mesh runs on 8
+ranks in ``tests/test_torch_sharded.py``."""
 import argparse
 import os
 
@@ -47,14 +48,20 @@ def test_parser_flags_and_defaults_equal_jax(monkeypatch):
 
 
 def test_mesh_is_one_device():
-    assert tlaunch.parse_mesh("1x1") == (1, 1)
-    for spec in ("2x4", "1x2", "2"):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            tlaunch.parse_mesh(spec)
-    with pytest.raises(NotImplementedError, match="sharding"):
+    """One process is a mesh of one device: ``--mesh 2x4`` needs 8 ranks
+    (``torchrun``), and without ``device="cpu"`` the mesh is the card's."""
+    import torch.distributed as dist
+
+    assert tlaunch.parse_mesh("1x1") == ((1, 1), ("data", "model"))
+    assert tlaunch.parse_mesh("2x4") == ((2, 4), ("data", "model"))
+    assert tlaunch.parse_mesh("2") == ((2,), ("data",))
+    assert tlaunch.parse_mesh("2x2x2") == ((2, 2, 2),
+                                           ("pod", "data", "model"))
+    with pytest.raises(ValueError, match="8 ranks"):
         tlaunch.main(["--mesh", "2x4"], device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlaunch.main(["--steps", "1"])
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("arch,steps,extra", [

@@ -230,10 +230,14 @@ def test_every_arch_builds_with_jax_tree_and_dtypes(arch):
 
 
 def test_sharding_axes_raise():
+    """Sharding axes run a model on DTensors of a mesh: with plain tensors
+    and no ambient mesh there is none to run on."""
+    from repro_torch.models.layers import Axes
+
     _, _, tm, tp = pair("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="no ambient mesh"):
         tm.forward(tp, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                   axes=object())
+                   axes=Axes())
 
 
 def test_init_and_concrete_batch_are_seeded():
