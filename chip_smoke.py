@@ -195,9 +195,33 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    devices; their FLOPs, bytes, collectives by kind, ``dominant`` and
    wall printed, the records under ``chiprun_out/dryrun``. The phase
    launches none of the port's kernels.
+   3l. The MoE, SSD and RG-LRU blocks through the mesh path on a
+   ``DeviceMesh`` of one device (the same code as on any mesh): (a)
+   olmoe-1b-7b at full width (d_model 2048, 64 experts, top 8, d_ff
+   1024), 4 of its 16 layers (AdamW's state on one card), bf16 with
+   ``TrainConfig()``'s mixed precision and
+   ``remat="block_save"``, 4 x 4096 tokens from seed 0: 3 steps
+   unsharded, then 3 through
+   ``launch.train``'s mesh path, the losses within 1e-6 relative (bits
+   printed); the mesh step's ms, tokens/s, busy share (a profile), peak
+   memory and op analysis against the step's bound. (b) mamba2-370m and
+   recurrentgemma-2b at full width in bf16: 2 train steps of 4 x 2048 each
+   way at full depth (recurrentgemma-2b 12 of its 26 layers: two train
+   states on one card), the losses held as in (a); at full depth a
+   512-token prefill at batch 4
+   through ``prefill_with_cache`` with the cache laid out by
+   ``cache_pspecs`` and 8 decode steps through ``make_decode_step(model,
+   axes)``: the greedy tokens equal to the plain path's, the decode step's
+   ms beside the plain step's; with float32 params, fed the plain path's
+   tokens, the logits within 5e-3. (c) two more dry-run subprocesses, run
+   beside (a) and (b): olmoe-1b-7b x train_4k on the pod (256) and
+   mamba2-370m x prefill_32k on the multipod mesh (512), each ``ok``, with
+   their collectives by kind and link bytes a device. The phase launches
+   none of the port's kernels.
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   paths of phases 3, 3c, 3d, 3e, 3f, 3g, 3h, 3i, 3j and 3k (each must be
-   > 0; the counts are set to 0 before each phase and read after it) and
+   paths of phases 3, 3c, 3d, 3e, 3f, 3g, 3h, 3i, 3j, 3k and 3l (each
+   must be > 0; the counts are set to 0 before each phase and read after
+   it) and
    the numbers of phase 2, whose launch shapes include the serving, fleet
    and MoE routing ones.
 
@@ -355,10 +379,38 @@ TRAIN_DRIVER_LAYERS = 2
 #: training arch's train cell.
 MESH_BLOCK_STEPS, MESH_SAVE_STEPS, MESH_LOSS_RTOL = 2, 5, 1e-6
 CP_ARCH, CP_S_MAX, CP_STEPS, CP_TOL = "gemma3-1b", 524288, 4, 2e-3
-DRYRUN_CELLS = (("whisper-base", "decode_32k", "multipod", 512),
-                ("qwen1.5-0.5b", "train_4k", "singlepod", 256))
+#: Phase 3l: the MoE, SSD and RG-LRU blocks through the mesh path on a
+#: mesh of one device. (a) olmoe-1b-7b at full width, its depth cut to 4
+#: of 16 layers, bf16 with
+#: ``TrainConfig()``'s mixed precision and ``remat="block_save"`` (JAX's
+#: dry-run tuning for the arch), train_4k's 4096 tokens with its batch cut
+#: to 4: its steps' losses against the same config's unsharded steps. A
+#: step holds two train states of 14 bytes a param and the optimizer's
+#: float32 temporaries of the stacked expert leaf: at 4 layers (1.78 B
+#: params) 61.2 GiB (NVIDIA H100 80GB HBM3, 700 W). (b)
+#: mamba2-370m and recurrentgemma-2b at full width: train steps against the
+#: unsharded steps (batch, sequence, steps), at full depth but where
+#: ``FAMILY_TRAIN_LAYERS`` cuts it (a step holds two train states of 14
+#: bytes a param, and recurrentgemma-2b's 2.38 B params at 26 layers come
+#: to 71.5 GB with the grads; 12 layers, four (rec, rec, local) periods,
+#: 43.4 GB); then, at full depth, a prefill of 512 tokens at batch 4
+#: through ``prefill_with_cache`` and 8 decode steps on the mesh, the
+#: tokens equal to the plain path's with bf16 params, the logits within
+#: ``LM_TOL`` with float32 params.
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = "olmoe-1b-7b", 4, 3
+FAMILY_MESH_ARCHS = ("mamba2-370m", "recurrentgemma-2b")
+FAMILY_TRAIN = (4, 2048, 2)
+FAMILY_TRAIN_LAYERS = {"recurrentgemma-2b": 12}
+FAMILY_MESH_BATCH, FAMILY_MESH_PROMPT, FAMILY_MESH_NEW = 4, 512, 8
+#: Dry-run cells (phase, arch, shape, mesh, devices): phase 3k's JAX
+#: one-cell test and the training arch's train cell; phase 3l's MoE train
+#: cell on the pod and an SSD prefill cell on the multipod mesh.
+DRYRUN_CELLS = (("3k", "whisper-base", "decode_32k", "multipod", 512),
+                ("3k", "qwen1.5-0.5b", "train_4k", "singlepod", 256),
+                ("3l", "olmoe-1b-7b", "train_4k", "singlepod", 256),
+                ("3l", "mamba2-370m", "prefill_32k", "multipod", 512))
 DRYRUN_TIMEOUT_S = 300
-#: The device phases 3h-3k run on (a CPU rehearsal sets it to "cpu").
+#: The device phases 3h-3l run on (a CPU rehearsal sets it to "cpu").
 LM_DEVICE = "cuda"
 #: The kernel bodies that run each dataflow class's partitions.
 BODIES = {
@@ -2551,17 +2603,21 @@ def lm_training(cfg=None):
 
 
 # ---------------------------------------------------------------- phase 3k
-def start_dryruns():
-    """Phase 3k (c), started first so that it runs on the host's cores
-    while the card works: one ``python -m repro_torch.launch.dryrun``
-    subprocess per cell of ``DRYRUN_CELLS``, each writing its record under
-    ``chiprun_out/dryrun``."""
+def phase_cells(phase: str):
+    return [cell[1:] for cell in DRYRUN_CELLS if cell[0] == phase]
+
+
+def start_dryruns(phase: str):
+    """Phase 3k (c) or 3l (c), started first so that it runs on the host's
+    cores while the card works: one ``python -m repro_torch.launch.dryrun``
+    subprocess per cell of the phase in ``DRYRUN_CELLS``, each writing its
+    record under ``chiprun_out/dryrun``."""
     import threading
 
     out = ROOT / "chiprun_out" / "dryrun"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
-    for arch, shape, mesh, _ in DRYRUN_CELLS:
+    for arch, shape, mesh, _ in phase_cells(phase):
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--mesh", mesh, "--out", str(out)]
         run = {"t0": time.perf_counter(), "proc": subprocess.Popen(
@@ -2581,14 +2637,15 @@ def start_dryruns():
         run["waiter"] = threading.Thread(target=wait, daemon=True)
         run["waiter"].start()
         procs.append(run)
-    return out, procs
+    return out, procs, phase
 
 
-def finish_dryruns(out, procs):
-    """Phase 3k (c): each dry-run cell ends ``ok`` on its mesh's
-    ``devices``; its FLOPs, bytes, collectives by kind, ``dominant`` and
-    the subprocess's wall (start to exit), printed."""
-    for (arch, shape, mesh, devices), run in zip(DRYRUN_CELLS, procs):
+def finish_dryruns(out, procs, phase):
+    """Phase 3k (c) or 3l (c): each dry-run cell ends ``ok`` on its
+    mesh's ``devices``; its FLOPs, bytes, collectives by kind and link
+    bytes a device, ``dominant`` and the subprocess's wall (start to
+    exit), printed."""
+    for (arch, shape, mesh, devices), run in zip(phase_cells(phase), procs):
         run["waiter"].join()
         proc, err, wall_s = run["proc"], run["err"], run["wall_s"]
         if proc.returncode != 0:
@@ -2600,8 +2657,11 @@ def finish_dryruns(out, procs):
             raise AssertionError(f"dry run {arch} x {shape}: {rec}")
         log(f"dryrun {mesh} {arch} x {shape}: ok on {rec['devices']} "
             f"devices, {rec['flops_per_device']:.4e} FLOP and "
-            f"{rec['bytes_per_device']:.4e} bytes a device, dominant "
-            f"{rec['roofline']['dominant']}, subprocess {wall_s:.1f} s")
+            f"{rec['bytes_per_device']:.4e} bytes a device, collectives "
+            f"{rec['collective']['ops']}, "
+            f"{rec['collective']['ici_bytes_per_chip']:.4e} link bytes a "
+            f"device, dominant {rec['roofline']['dominant']}, subprocess "
+            f"{wall_s:.1f} s")
         log("dryrun measured: " + json.dumps({
             "arch": arch, "shape": shape, "mesh": mesh,
             "subprocess_s": wall_s, "trace_s": rec["trace_s"],
@@ -2771,7 +2831,9 @@ def cp_decode(cfg, dtype: str, timed: bool):
             pos = torch.tensor([pos0 + i], device=dev, dtype=torch.int32)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            ref_lg, _ = plain_step(params, cache, tok, pos)
+            # The plain step's new cache (13.96 GB) is dropped at once,
+            # not held through the context-parallel step.
+            ref_lg = plain_step(params, cache, tok, pos)[0]
             torch.cuda.synchronize()
             plain_ms.append((time.perf_counter() - t1) * 1e3)
             t1 = time.perf_counter()
@@ -2830,7 +2892,7 @@ def lm_mesh(train_losses, cfg=None, cp_cfg=None):
     context-parallel decode at long_500k (b), the dry runs collected.
     Returns the kernels' launches (the path runs none of the nine)."""
     reset_counts()
-    out, procs = start_dryruns()
+    runs = start_dryruns("3k")
     try:
         mesh_train(cfg or get_config(TRAIN_ARCH), train_losses)
         torch.cuda.empty_cache()
@@ -2838,7 +2900,292 @@ def lm_mesh(train_losses, cfg=None, cp_cfg=None):
         torch.cuda.empty_cache()
     finally:
         mesh_mod.shutdown()
-    finish_dryruns(out, procs)
+    finish_dryruns(*runs)
+    return counts()
+
+
+# ---------------------------------------------------------------- phase 3l
+def active_params(cfg, params) -> int:
+    """Parameters one token runs through: an MoE block's expert weights
+    (``wi``, ``wg``, ``wo`` of E experts) count k/E of theirs."""
+    from repro_torch.common.pytree import tree_map_with_path
+
+    leaves = []
+    share = cfg.experts_per_token / cfg.n_experts if cfg.n_experts else 1.0
+
+    def count(path, t):
+        expert = (cfg.family == "moe" and path[-1] in ("wi", "wg", "wo")
+                  and "ffn" in path)
+        leaves.append(t.numel() * (share if expert else 1.0))
+
+    tree_map_with_path(count, params)
+    return int(sum(leaves))
+
+
+def family_train(cfg, batch_size: int, seq: int, steps: int,
+                 detail: bool = False) -> dict:
+    """Phase 3l (a) and (b) training: ``cfg`` from seed 0 on the card,
+    ``steps`` steps on one synthetic batch (``TrainConfig`` with warmup 2,
+    mixed precision), first unsharded (``axes=None``), then through
+    ``launch.train``'s mesh path on a 1x1 ``DeviceMesh`` (state laid out by
+    ``param_pspecs`` and ``state_specs``, the batch over the batch axes,
+    ``grad_pspecs``): the mesh path's losses within ``MESH_LOSS_RTOL`` of
+    the unsharded ones (bits printed). With ``detail``: the mesh step's
+    busy share (a profile), peak memory and op analysis against its ms."""
+    dev = torch.device(LM_DEVICE)
+    model = build(cfg)
+    tcfg = TrainConfig(optimizer=AdamWConfig(warmup_steps=2))
+    ds = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=batch_size,
+                                 seed=TRAIN_DATA_SEED))
+    host = ds.batch_at(0)
+    report = {"arch": cfg.name, "layers": cfg.n_layers, "remat": cfg.remat,
+              "batch": batch_size, "seq": seq}
+    for path in ("plain", "mesh"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        state = init_train_state(
+            model, tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        report["state_bytes"] = tree_bytes(state)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        mesh = axes = None
+        if path == "mesh":
+            mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), dev.type)
+            axes = mesh_axes(mesh)
+            pspecs = sharding.param_pspecs(state["params"],
+                                           mesh_mod.axis_sizes(mesh))
+            state = sharding.distribute(state, sharding.named_shardings(
+                train_launch.state_specs(state, pspecs), mesh))
+            bsh = sharding.NamedSharding(
+                mesh, sharding.P(mesh_mod.batch_axes(mesh)))
+            batch = {k: sharding.shard_tensor(v, bsh)
+                     for k, v in batch.items()}
+            step = make_train_step(model, axes, tcfg, grad_pspecs=pspecs)
+        else:
+            step = make_train_step(model, None, tcfg)
+        losses, auxes, times = [], [], []
+        with mesh_mod.set_mesh(mesh):
+            for _ in range(steps):
+                state, vals, ms = timed_step(step, state, batch)
+                losses.append(vals["loss"])
+                auxes.append(vals["aux"])
+                times.append(ms)
+            peak = torch.cuda.max_memory_allocated()
+            if path == "mesh" and detail:
+                torch.cuda.empty_cache()
+                report["profile"] = profile_run(lambda: step(state, batch),
+                                                top=8)
+                torch.cuda.empty_cache()
+                counter = op_analysis.OpCounter()
+                with counter:
+                    step(state, batch)
+                    torch.cuda.synchronize()
+                report["op_flops_by_dtype"] = dict(counter.flops_by_dtype)
+                report["op_flops"] = op_analysis.dot_flops(counter)
+                report["op_bytes"] = op_analysis.memory_bytes(counter)
+                report["op_collectives"] = op_analysis.collective_stats(
+                    counter).ops
+        if path == "mesh":
+            report["active_params"] = active_params(
+                cfg, tree_map(lambda t: t.to_local(), state["params"]))
+        del state
+        report[path] = {"losses": losses, "aux": auxes,
+                        "loss_bits": [x.hex() for x in losses],
+                        "step_ms_all": times,
+                        "step_ms": statistics.median(times[1:] or times),
+                        "peak_mb_above_base": (peak - base_mem) / 2 ** 20}
+    want, got = report["plain"]["losses"], report["mesh"]["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if worst > MESH_LOSS_RTOL or not all(map(math.isfinite, got)):
+        raise AssertionError(f"mesh train {cfg.name}: losses {got} against "
+                             f"the unsharded {want} ({worst:.3e} rel)")
+    report["same_bits"] = got == want
+    report["loss_rel_diff"] = worst
+    log(f"mesh train {cfg.name}: {cfg.n_layers} of "
+        f"{get_config(cfg.name).n_layers} layers at full width, "
+        f"{cfg.dtype}, remat {cfg.remat}, {batch_size} x {seq} tokens, "
+        f"{steps} steps on a 1x1 DeviceMesh: losses {got} against the "
+        f"unsharded {want}: " + ("the same bits" if got == want else
+                                 f"{worst:.3e} rel (tol {MESH_LOSS_RTOL})")
+        + f"; step {report['mesh']['step_ms']:.2f} ms (unsharded "
+        f"{report['plain']['step_ms']:.2f})")
+    return report
+
+
+def moe_mesh_train(cfg=None) -> None:
+    """Phase 3l (a): olmoe-1b-7b at full width, ``MOE_TRAIN_LAYERS``
+    deep, ``remat="block_save"``, through the mesh path against its
+    unsharded steps; step ms, tokens/s, busy share, peak memory, the op
+    analysis of one step and the step's bound: the active parameters'
+    matmuls (6 a token, the remat's second forward 2 more a block weight,
+    the loss head's recompute) at the bf16 peak and flash's float32 passes
+    at the f32 peak (``train_bound``'s terms), or the train state read and
+    written once at 3.35 TB/s, whichever is larger."""
+    cfg = cfg or dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                                     n_layers=MOE_TRAIN_LAYERS,
+                                     remat="block_save")
+    rep = family_train(cfg, TRAIN_BATCH, TRAIN_SEQ, MOE_TRAIN_STEPS,
+                       detail=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_act = rep["active_params"]
+    n_layers = cfg.n_layers
+    n_attn = sum(k in lm.ATTENTION_KINDS for k in cfg.layer_kinds())
+    embed = cfg.d_model * lm.padded_vocab(cfg)
+    parts = {
+        "matmul_flops": 6.0 * n_act * tokens,
+        "remat_flops": 2.0 * (n_act - embed) * tokens,
+        "loss_head_flops": 2.0 * embed * tokens,
+        "flash_f32_flops": 9 * n_attn * 2.0 * TRAIN_BATCH * TRAIN_SEQ
+        * TRAIN_SEQ * cfg.n_heads * cfg.d_head,
+        "state_bytes_rw": 2.0 * rep["state_bytes"],
+    }
+    ops_ms = ((parts["matmul_flops"] + parts["remat_flops"]
+               + parts["loss_head_flops"]) / BF16_FLOPS_PER_S
+              + parts["flash_f32_flops"] / F32_FLOPS_PER_S) * 1e3
+    bytes_ms = parts["state_bytes_rw"] / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    step_ms = rep["mesh"]["step_ms"]
+    prof = rep["profile"]
+    log(f"mesh moe train: {cfg.name} {n_layers} of "
+        f"{get_config(cfg.name).n_layers} layers, "
+        f"{rep['state_bytes'] / 1e9:.2f} GB of train state, {n_act / 1e9:.3f}"
+        f" B active params: step {step_ms:.2f} ms, "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s, busy "
+        f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f}, peak "
+        f"{rep['mesh']['peak_mb_above_base']:.0f} MiB above base; op "
+        f"analysis {rep['op_flops']:.4e} FLOP {rep['op_flops_by_dtype']}, "
+        f"{rep['op_bytes']:.4e} bytes; bound {bound_ms:.2f} ms (by "
+        f"{'operations' if ops_ms >= bytes_ms else 'bytes'})")
+    log("mesh moe train measured: " + json.dumps({
+        **rep, "tokens_per_s": tokens / (step_ms / 1e3),
+        "step_bound_ms": bound_ms, "bound_by": ("operations"
+                                                 if ops_ms >= bytes_ms
+                                                 else "bytes"),
+        "bound_parts": parts, "ops_ms": ops_ms, "bytes_ms": bytes_ms}))
+
+
+def family_generate(model, params, prompt, new: int, axes=None, mesh=None,
+                    forced=None):
+    """A prefill of ``prompt`` through ``prefill_with_cache`` and ``new``
+    decode steps (greedy, or fed ``forced`` tokens), unsharded or, with
+    ``axes``, on ``mesh`` with the cache laid out by ``cache_pspecs``.
+    Returns (tokens (B, new + 1), logits of each step (B, new + 1, V),
+    decode step ms)."""
+    dev = prompt.device
+    b, s = prompt.shape
+    cache = model.init_cache(b, s + new, device=dev)
+    if axes is not None:
+        sizes = mesh_mod.axis_sizes(mesh)
+        cache = sharding.distribute(cache, sharding.named_shardings(
+            sharding.cache_pspecs(cache, mesh_mod.batch_axes(mesh), sizes),
+            mesh))
+        params = sharding.distribute(params, sharding.named_shardings(
+            sharding.param_pspecs(params, sizes), mesh))
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    prefill = engine.make_prefill(model, axes, with_cache=True)
+    step = engine.make_decode_step(model, axes)
+    toks, logits, times = [], [], []
+    with mesh_mod.set_mesh(mesh), torch.no_grad():
+        lg, cache = prefill(params, cache, prompt)
+        for i in range(new + 1):
+            lg = whole(lg)[:, -1].float()
+            logits.append(lg)
+            tok = (lg.argmax(-1) if forced is None else forced[:, i])
+            toks.append(tok)
+            if i == new:
+                break
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, cache = step(params, cache, tok[:, None].to(torch.int32),
+                             pos)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+    return torch.stack(toks, 1), torch.stack(logits, 1), times
+
+
+def family_mesh_decode(cfg) -> dict:
+    """Phase 3l (b) serving: ``cfg`` at full width and depth, a prompt of
+    ``FAMILY_MESH_PROMPT`` tokens at batch ``FAMILY_MESH_BATCH`` from seed
+    1: with bf16 params the mesh path's greedy tokens equal the plain
+    path's (and its decode step ms beside the plain step's, median of
+    steps 3-8); with float32 params, fed the plain path's tokens, its
+    logits within ``LM_TOL`` of the plain path's."""
+    dev = torch.device(LM_DEVICE)
+    out = {"arch": cfg.name, "layers": cfg.n_layers}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (FAMILY_MESH_BATCH, FAMILY_MESH_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), dev.type)
+    axes = mesh_axes(mesh)
+    for dtype in ("bfloat16", "float32"):
+        model = build(dataclasses.replace(cfg, dtype=dtype))
+        torch.cuda.empty_cache()
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        ptoks, plg, pms = family_generate(model, params, prompt,
+                                          FAMILY_MESH_NEW)
+        forced = None if dtype == "bfloat16" else ptoks
+        mtoks, mlg, mms = family_generate(model, params, prompt,
+                                          FAMILY_MESH_NEW, axes, mesh,
+                                          forced)
+        diff = float((mlg - plg).abs().max())
+        same = torch.equal(mtoks, ptoks)
+        if dtype == "bfloat16" and not same:
+            raise AssertionError(f"mesh decode {cfg.name}: tokens "
+                                 f"{mtoks.tolist()} against the plain "
+                                 f"path's {ptoks.tolist()}")
+        if dtype == "float32" and not diff <= LM_TOL:
+            raise AssertionError(f"mesh decode {cfg.name} float32: logits "
+                                 f"{diff:.3e} from the plain path's (tol "
+                                 f"{LM_TOL})")
+        out[dtype] = {"same_tokens": same, "max_abs_logit_diff": diff,
+                      "same_logit_bits": bool(torch.equal(bits(mlg),
+                                                          bits(plg))),
+                      "mesh_step_ms": statistics.median(mms[2:]),
+                      "plain_step_ms": statistics.median(pms[2:]),
+                      "mesh_ms_all": mms, "plain_ms_all": pms}
+        del params
+    bf = out["bfloat16"]
+    log(f"mesh decode {cfg.name}: {cfg.n_layers} layers at full width, "
+        f"{FAMILY_MESH_BATCH} x ({FAMILY_MESH_PROMPT} + {FAMILY_MESH_NEW}) "
+        f"through prefill_with_cache and make_decode_step on a 1x1 "
+        f"DeviceMesh (cache_pspecs): bf16 tokens equal to the plain path's"
+        f" (logits {bf['max_abs_logit_diff']:.3e} apart), step "
+        f"{bf['mesh_step_ms']:.2f} ms (plain {bf['plain_step_ms']:.2f}); "
+        f"float32 logits within {out['float32']['max_abs_logit_diff']:.3e}"
+        f" (tol {LM_TOL})")
+    return out
+
+
+def lm_mesh_families(moe_cfg=None, family_cfgs=None):
+    """Phase 3l: the dry runs started (c), olmoe-1b-7b's mesh-path train
+    step (a), mamba2-370m and recurrentgemma-2b trained and served
+    through the mesh path (b), the dry runs collected. Returns the
+    kernels' launches (the path runs none of the nine)."""
+    reset_counts()
+    runs = start_dryruns("3l")
+    try:
+        moe_mesh_train(moe_cfg)
+        torch.cuda.empty_cache()
+        report = []
+        for cfg in family_cfgs or [get_config(a) for a in FAMILY_MESH_ARCHS]:
+            b, s, n = FAMILY_TRAIN
+            tcfg = dataclasses.replace(cfg, n_layers=FAMILY_TRAIN_LAYERS.get(
+                cfg.name, cfg.n_layers))
+            train = family_train(tcfg, b, s, n)
+            torch.cuda.empty_cache()
+            report.append({"train": train, "decode": family_mesh_decode(cfg)})
+            torch.cuda.empty_cache()
+        log("mesh families measured: " + json.dumps(report))
+    finally:
+        mesh_mod.shutdown()
+    finish_dryruns(*runs)
     return counts()
 
 
@@ -3117,11 +3464,18 @@ def main() -> int:
     log(f"phase 3k mesh paths: {time.perf_counter() - t0:.1f} s, "
         f"launches {mesh_launches}")
 
+    # ---- phase 3l: the MoE, SSD and RG-LRU blocks on the mesh path -------
+    t0 = time.perf_counter()
+    mesh_family_launches = lm_mesh_families()
+    log(f"phase 3l mesh families: {time.perf_counter() - t0:.1f} s, "
+        f"launches {mesh_family_launches}")
+
     # ---- phase 4: the kernels line ---------------------------------------
     launches = {k: single_launches[k] + many_launches[k] + opt_launches[k]
                 + stream_launches[k] + serve_launches[k] + fleet_launches[k]
                 + lm_launches[k] + family_launches[k] + train_launches[k]
-                + mesh_launches[k] for k in REPLACES}
+                + mesh_launches[k] + mesh_family_launches[k]
+                for k in REPLACES}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]

@@ -25,9 +25,9 @@ process:
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch whisper-base --shape decode_32k --mesh multipod --out DIR
 
-A cell of a family that does not yet run sharded (``moe``, ``ssm``,
-``recurrent`` on a mesh of more than one device) records ``ok: False``
-with the error, as JAX's ``run_cell`` does for a failing cell.
+Every arch runs sharded, the MoE experts, SSD heads and RG-LRU width
+over the model axis where they divide it. A cell that fails records
+``ok: False`` with the error, as JAX's ``run_cell`` does.
 """
 from __future__ import annotations
 

@@ -101,19 +101,20 @@ def tensor_bytes(t: torch.Tensor) -> int:
 
 
 def _tensors(tree) -> List[torch.Tensor]:
+    """The tensors of ``tree`` (lists, tuples, dicts) in order. A loop, not
+    a recursive closure: a closure that calls itself is a reference cycle,
+    which would keep every counted op's tensors alive until Python's cycle
+    collector ran."""
     out: List[torch.Tensor] = []
-
-    def walk(x):
+    stack = [tree]
+    while stack:
+        x = stack.pop()
         if isinstance(x, torch.Tensor):
             out.append(x)
         elif isinstance(x, (list, tuple)):
-            for y in x:
-                walk(y)
+            stack.extend(reversed(x))
         elif isinstance(x, dict):
-            for y in x.values():
-                walk(y)
-
-    walk(tree)
+            stack.extend(reversed(list(x.values())))
     return out
 
 

@@ -97,12 +97,32 @@ def sc(x, axes: Optional[Axes], *spec):
     gradient: DTensor's redistribute alone would hand a partial-sum
     gradient back unreduced, and the ops behind it would then gather their
     weights instead (the gradient of a residual stream, partial over the
-    model axis after a TP block, is all-reduced here)."""
+    model axis after a TP block, is all-reduced here). A dim that its mesh
+    axes do not divide stays replicated (:func:`even_placements`)."""
     if axes is None:
         return x
     mesh = mesh_of(x)
-    y = replicate(x, mesh).redistribute(mesh, to_placements(P(*spec), mesh))
+    x = replicate(x, mesh)
+    y = x.redistribute(mesh, even_placements(P(*spec), x.shape, mesh))
     return _GradAs.apply(y) if y.requires_grad else y
+
+
+def even_placements(spec, shape, mesh) -> tuple:
+    """``to_placements(spec, mesh)`` for an activation of ``shape``, each
+    dim sharded only over the mesh axes of its entry whose sizes' product
+    divides it, the major axes dropped first: a microbatch of 16 rows over
+    ("pod", "data") = 32 shards over "data" alone, a batch of one stays
+    replicated. JAX pads an uneven shard; DTensor's view rules refuse
+    one."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    fit = []
+    for d, entry in enumerate(spec):
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        while names and shape[d] % math.prod(int(sizes.get(a, 1))
+                                             for a in names):
+            names = names[1:]
+        fit.append(names or None)
+    return to_placements(P(*fit), mesh)
 
 
 def uw(w, axes: Optional[Axes], *spec, fsdp_dim: Optional[int] = None):
@@ -136,8 +156,19 @@ def local(x: DTensor, partial_dims: Sequence[int] = ()) -> torch.Tensor:
     return x.to_local(grad_placements=grads)
 
 
-def from_local(t: torch.Tensor, mesh, placements) -> DTensor:
-    return DTensor.from_local(t, mesh, placements, run_check=False)
+def from_local(t: torch.Tensor, mesh, placements, shape=None) -> DTensor:
+    """A DTensor of this rank's ``t``; ``shape``, where given, is its
+    global shape (a batch sharded unevenly, one row over many ranks, has
+    no other way to say it)."""
+    if shape is None:
+        return DTensor.from_local(t, mesh, placements, run_check=False)
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.append(n)
+        n *= max(int(size), 1)
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
 
 
 def _shard_dims(placements, dim: int) -> list:
@@ -145,39 +176,88 @@ def _shard_dims(placements, dim: int) -> list:
             if pl.is_shard() and pl.dim == dim]
 
 
-def check_unsharded(axes: Optional[Axes], what: str, *xs) -> None:
-    """``what`` runs on one device only: under a mesh of more than one
-    device it raises rather than running replicated."""
-    n = 1 if axes is None else mesh_of(*xs).size()
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {n} devices: its ops (scatter, gather, "
-            "advanced indexing, scans) have no DTensor sharding here yet; "
-            "the next sharding slice of ROADMAP.md queue 1")
+def with_placement(placements, dim: Optional[int], pl) -> tuple:
+    """``placements`` with mesh dim ``dim`` set to ``pl`` (unchanged for
+    ``dim=None``)."""
+    out = list(placements)
+    if dim is not None:
+        out[dim] = pl
+    return tuple(out)
 
 
-def on_local(fn, axes: Optional[Axes], *args, **kwargs):
-    """``fn`` on the local tensors of a one-device mesh (placements all
-    ``Replicate``), its tensor outputs replicated DTensors again."""
-    from repro_torch.common.pytree import tree_map
+def model_split(mesh, axes: Axes, n: int) -> Tuple[Optional[int], int, int]:
+    """(model mesh dim, TP degree, this rank's index along it) when ``n``
+    (heads, experts, channels) is split over the model axis (``axes.tp``);
+    ``(None, 1, 0)`` when every model rank holds all ``n``."""
+    if axes.tp(n) is None:
+        return None, 1, 0
+    names = tuple(mesh.mesh_dim_names or ())
+    m = names.index(axes.model) if axes.model in names else None
+    if m is None or mesh.size(m) != dict(axes.sizes)[axes.model]:
+        raise ValueError(f"axes {axes} do not describe the mesh "
+                         f"{tuple(mesh.mesh_dim_names)} of "
+                         f"{tuple(mesh.mesh.shape)}")
+    return m, mesh.size(m), mesh.get_local_rank(m)
 
-    if axes is None:
-        return fn(*args, **kwargs)
-    mesh = None
 
-    def unwrap(x):
-        nonlocal mesh
-        if isinstance(x, DTensor):
-            mesh = x.device_mesh
-            return x.to_local()
-        return x
+def whole(w, axes: Axes, partial_dims: Sequence[int] = ()) -> torch.Tensor:
+    """Weight ``w`` unsharded whole at use (:func:`uw` to every mesh dim
+    replicated: all-gathers of its stored shards) as this rank's tensor;
+    its gradient a partial sum over the mesh dims ``partial_dims`` (where
+    the ranks use it on different rows or take different slices of it),
+    which the backward of ``uw`` reduce-scatters onto the stored layout."""
+    return local(uw(w, axes, *([None] * w.ndim)), partial_dims)
 
-    args = tree_map(unwrap, args)
-    kwargs = tree_map(unwrap, kwargs)
-    mesh = mesh or mesh_of()
-    out = fn(*args, **kwargs)
-    return tree_map(lambda t: replicate(t, mesh)
-                    if isinstance(t, torch.Tensor) else t, out)
+
+def _all_reduce(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    for d in dims:
+        t = funcol.all_reduce(t, "sum", (mesh, d))
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dims, split_use):
+        ctx.mesh, ctx.dims, ctx.split_use = mesh, dims, split_use
+        return _all_reduce(t, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.split_use:
+            g = _all_reduce(g, ctx.mesh, ctx.dims)
+        return g, None, None, None
+
+
+def psum(t: torch.Tensor, mesh, dims: Sequence[int],
+         split_use: bool = False) -> torch.Tensor:
+    """JAX's ``psum`` of this rank's ``t`` over the mesh dims ``dims``: one
+    all-reduce a dim of more than one rank. Its backward is the identity
+    when every rank uses the sum whole (the gradient arrives whole on
+    each), an all-reduce too when ``split_use`` (each rank uses it on its
+    own slice, so holds a partial gradient)."""
+    dims = tuple(d for d in dims if mesh.size(d) > 1)
+    if not dims:
+        return t
+    return _PSum.apply(t, mesh, dims, split_use)
+
+
+def split_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float, n: int,
+                  mesh=None, dims: Sequence[int] = ()) -> torch.Tensor:
+    """:func:`rmsnorm` of a last dim of ``n`` split over the mesh dims
+    ``dims`` (this rank's ``x`` and ``scale`` its slice): each row's sum
+    of squares is all-reduced, (B, S) floats, and every rank normalises
+    its slice. With no dim split it is :func:`rmsnorm`."""
+    if mesh is None or not any(mesh.size(d) > 1 for d in dims):
+        return rmsnorm(x, scale, eps)
+    x32 = x.float()
+    ss = psum(x32.square().sum(dim=-1, keepdim=True), mesh, dims,
+              split_use=True)
+    out = x32 * torch.rsqrt(ss / n + eps)
+    return (out * scale.float()).to(x.dtype)
 
 
 @torch.library.custom_op("repro_torch::tag", mutates_args=())
@@ -205,7 +285,7 @@ def checkpoint_name(x, name: str):
     (``attn_out``, ``moe_out``) while they recompute the rest."""
     if isinstance(x, DTensor):
         return from_local(TAG_OP(x.to_local(), name), x.device_mesh,
-                          x.placements)
+                          x.placements, shape=x.shape)
     return TAG_OP(x, name)
 
 
@@ -367,9 +447,10 @@ def _sharded_flash(q, k, v, axes: Axes, causal, window, chunk, scale):
     kv_ax = axes.tp(kvh) if h_ax else None
     tp = dict(axes.sizes or ()).get(axes.model, 1)
     seq_shard = h_ax is None and tp > 1 and s % tp == 0
-    q = q.redistribute(mesh, to_placements(
-        P(axes.batch, axes.model if seq_shard else None, h_ax, None), mesh))
-    kpl = to_placements(P(axes.batch, None, kv_ax, None), mesh)
+    q = q.redistribute(mesh, even_placements(
+        P(axes.batch, axes.model if seq_shard else None, h_ax, None),
+        q.shape, mesh))
+    kpl = even_placements(P(axes.batch, None, kv_ax, None), k.shape, mesh)
     k, v = replicate(k, mesh), replicate(v, mesh)
     k, v = k.redistribute(mesh, kpl), v.redistribute(mesh, kpl)
     partial = [i for i, (a, c) in enumerate(zip(q.placements, kpl))
@@ -392,7 +473,8 @@ def _sharded_flash(q, k, v, axes: Axes, causal, window, chunk, scale):
     kvl = kl.shape[2]
     qg = ql.reshape(bl, sl, kvl, hl // kvl, dh)
     ol = flash_attention(qg, kl, vl, causal, window, chunk, scale, q0)
-    return from_local(ol.reshape(bl, sl, hl, dh), mesh, q.placements)
+    return from_local(ol.reshape(bl, sl, hl, dh), mesh, q.placements,
+                      shape=q.shape)
 
 
 def decode_attention(
@@ -461,11 +543,26 @@ def _seq_offset(mesh, cache_placements, s_local: int) -> int:
     return mesh.get_local_rank(dims[0]) * s_local if dims else 0
 
 
+def _decode_project(x, w, bias, mesh, rpl) -> torch.Tensor:
+    """This rank's rows (``rpl``) of x (B, 1, D) times w (D, H, dh) (+
+    bias (H, dh)), as one matmul over the flattened heads through DTensor
+    (JAX's einsum on the stored weights): the product is laid out as the
+    cache's rows before the heads are split out of it, since DTensor may
+    shard the flattened dim over the model axis in pieces that heads not
+    dividing that axis cannot follow."""
+    d, hh, dh = w.shape
+    y = torch.matmul(x, w.reshape(d, hh * dh))
+    if bias is not None:
+        y = y + bias.reshape(hh * dh)
+    return y.redistribute(mesh, rpl).to_local().reshape(-1, 1, hh, dh)
+
+
 def _sharded_decode_attention(p, x, k_cache, v_cache, pos, cfg, axes,
                               window, cross):
     """:func:`decode_attention` on DTensors: the projections through
-    DTensor, the cache write and the scores on each rank's slice (the
-    cache's batch or sequence shard; heads replicated)."""
+    DTensor (:func:`_decode_project`), the cache write and the scores on
+    each rank's slice (the cache's batch or sequence shard; heads
+    replicated)."""
     mesh = mesh_of(k_cache, x)
     b, _, d = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -474,10 +571,12 @@ def _sharded_decode_attention(p, x, k_cache, v_cache, pos, cfg, axes,
     cpl = k_cache.placements
     rpl = _row_placements(cpl)
     pos_l = replicate(pos, mesh).redistribute(mesh, rpl).to_local()
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-    q = q.redistribute(mesh, rpl).to_local()
+
+    def project(name):
+        bias = p["b" + name[1]] if cfg.qkv_bias else None
+        return _decode_project(x, p[name], bias, mesh, rpl)
+
+    q = project("wq")
     if cross:
         full = tuple(Replicate() if pl.is_shard() and pl.dim == 1 else pl
                      for pl in cpl)
@@ -488,12 +587,7 @@ def _sharded_decode_attention(p, x, k_cache, v_cache, pos, cfg, axes,
                              torch.full_like(pos_l, s_max), window, dh,
                              torch.arange(s_max, device=kc.device))
     else:
-        k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
-        v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
-        if cfg.qkv_bias:
-            k, v = k + p["bk"], v + p["bv"]
-        k = k.redistribute(mesh, rpl).to_local()
-        v = v.redistribute(mesh, rpl).to_local()
+        k, v = project("wk"), project("wv")
         cos, sin = rope_angles(pos_l[:, None], dh, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -652,11 +746,13 @@ def embed(p: dict, tokens: torch.Tensor, cfg, axes: Optional[Axes] = None
     if axes is None:
         return p["tok"][tokens] * math.sqrt(cfg.d_model)
     mesh = mesh_of(p["tok"], tokens)
-    bpl = to_placements(P(axes.batch), mesh)
+    bpl = even_placements(P(axes.batch), tokens.shape, mesh)
     table = local(uw(p["tok"], axes), [i for i, pl in enumerate(bpl)
                                        if pl.is_shard()])
-    tok = replicate(tokens, mesh).redistribute(mesh, bpl).to_local()
-    return from_local(table[tok] * math.sqrt(cfg.d_model), mesh, bpl)
+    tokens = replicate(tokens, mesh)
+    tok = tokens.redistribute(mesh, bpl).to_local()
+    return from_local(table[tok] * math.sqrt(cfg.d_model), mesh, bpl,
+                      shape=(*tokens.shape, table.shape[1]))
 
 
 def logits(p: dict, x: torch.Tensor, cfg, axes: Optional[Axes] = None

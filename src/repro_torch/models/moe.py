@@ -16,6 +16,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.formats.ell import EllMatrix
 from repro_torch.models import layers as L
@@ -37,11 +38,11 @@ def init_moe(gen: torch.Generator, cfg, dtype) -> dict:
     }
 
 
-def _route(p: dict, xf: torch.Tensor, cfg):
+def _route(router: torch.Tensor, xf: torch.Tensor, cfg):
     """xf (T, D) -> (weights (T, k) float32, experts (T, k) int32): the
     router runs in float32 whatever the model's dtype; the top k come in
     descending order, then a softmax over them."""
-    logits = torch.einsum("td,de->te", xf.float(), p["router"])
+    logits = torch.einsum("td,de->te", xf.float(), router)
     weights, idx = torch.topk(logits, cfg.experts_per_token, dim=-1,
                               sorted=True)
     return torch.softmax(weights, dim=-1), idx.to(torch.int32)
@@ -55,16 +56,28 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg, axes=None
     choice) takes the next slot of its expert in token-major order, and
     those past the capacity drop (one-token decode never drops). Returns
     (out (B, S, D), (weights (B·S, k), experts (B·S, k))). The output is
-    named ``moe_out`` for the remat policies. Under a mesh it runs only on
-    one device (:func:`~repro_torch.models.layers.check_unsharded`).
-    """
+    named ``moe_out`` for the remat policies.
+
+    Under a mesh (:func:`_sharded_moe`) the routing and dispatch run on
+    each rank's batch shard and the experts over the model axis (EP)."""
     if axes is not None:
-        L.check_unsharded(axes, "the MoE capacity dispatch", x)
-        return L.on_local(moe_mlp, axes, p, x, cfg)
-    b, s, d = x.shape
+        return _sharded_moe(p, x, cfg, axes)
+    e = cfg.n_experts
+    out_buf, (weights, idx, slot, w) = _dispatch_ffn(
+        p["router"], p["wi"], p["wg"], p["wo"], x, x, cfg, 0, e)
+    out = _combine(out_buf, slot, w)
+    return L.checkpoint_name(out, "moe_out"), (weights, idx)
+
+
+def _dispatch_ffn(router, wi, wg, wo, xr, xd, cfg, e0: int, el: int):
+    """Routing, capacity dispatch and the FFN of experts ``[e0, e0 +
+    el)`` on local tensors: ``xr`` (B, S, D) feeds the router, ``xd`` (the
+    same values) the dispatch gather. Returns (out_buf (B, el, cap, D),
+    (weights, experts, slot (B, S·k), combine weights (B, S, k)))."""
+    b, s, d = xr.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = max(8, int(s * k * cfg.capacity_factor / e))
-    weights, idx = _route(p, x.reshape(b * s, d), cfg)       # (B·S, k)
+    weights, idx = _route(router, xr.reshape(b * s, d), cfg)
     idx_r = idx.reshape(b, s * k).long()                     # (B, S·k)
     w_r = weights.reshape(b, s, k)
 
@@ -76,48 +89,129 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg, axes=None
     slot = torch.where(keep, idx_r * cap + pos, e * cap)     # (B, S·k)
 
     # Dispatch: scatter the int32 inverse map (slot -> source), then
-    # gather the activations. Only the sentinel column e·cap takes more
-    # than one index, and it is dropped.
+    # gather the activations of experts [e0, e0 + el). Only the sentinel
+    # column e·cap takes more than one index, and it is dropped.
     j_ids = torch.arange(s * k, dtype=torch.int32,
-                         device=x.device).expand(b, s * k)
+                         device=xr.device).expand(b, s * k)
     inv = torch.full((b, e * cap + 1), -1, dtype=torch.int32,
-                     device=x.device)
-    inv = inv.scatter(1, slot, j_ids)[:, :-1]                # (B, E·cap)
+                     device=xr.device)
+    inv = inv.scatter(1, slot, j_ids)[:, e0 * cap:(e0 + el) * cap]
     tok = torch.where(inv >= 0, inv // k, 0).long()
-    rows = torch.arange(b, device=x.device)[:, None]
-    buf = x[rows, tok]                                       # (B, E·cap, D)
+    rows = torch.arange(b, device=xr.device)[:, None]
+    buf = xd[rows, tok]                                      # (B, el·cap, D)
     buf = buf * (inv >= 0)[..., None].to(buf.dtype)
-    buf = buf.reshape(b, e, cap, d)
+    buf = buf.reshape(b, el, cap, d)
 
     # Expert FFN, batched over (row, expert).
-    h = torch.einsum("becd,edf->becf", buf, p["wi"])
+    h = torch.einsum("becd,edf->becf", buf, wi)
     if cfg.act == "silu":
-        h = F.silu(torch.einsum("becd,edf->becf", buf, p["wg"])) * h
+        h = F.silu(torch.einsum("becd,edf->becf", buf, wg)) * h
     else:
         h = L.activation(h, cfg.act)
-    out_buf = torch.einsum("becf,efd->becd", h, p["wo"])
-    out_buf = out_buf.reshape(b, e * cap, d)
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((b, 1, d))], dim=1)
+    out_buf = torch.einsum("becf,efd->becd", h, wo)
+    w = w_r * keep.reshape(b, s, k)
+    return out_buf, (weights, idx, slot, w)
 
-    # Combine: gather each (token, choice) result, weight and sum.
+
+def _combine(out_buf: torch.Tensor, slot: torch.Tensor, w: torch.Tensor
+             ) -> torch.Tensor:
+    """Gather each (token, choice) result of ``out_buf`` (B, E, cap, D)
+    at its ``slot`` (the sentinel E·cap reads zeros), weight and sum."""
+    b, s, k = w.shape
+    d = out_buf.shape[-1]
+    out_buf = out_buf.reshape(b, -1, d)
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((b, 1, d))], dim=1)
+    rows = torch.arange(b, device=out_buf.device)[:, None]
     gathered = out_buf[rows, slot].reshape(b, s, k, d)
-    w = (w_r * keep.reshape(b, s, k)).to(gathered.dtype)
-    out = torch.einsum("bskd,bsk->bsd", gathered, w)
-    return L.checkpoint_name(out, "moe_out"), (weights, idx)
+    return torch.einsum("bskd,bsk->bsd", gathered, w.to(gathered.dtype))
+
+
+def _sharded_moe(p: dict, x, cfg, axes: L.Axes):
+    """:func:`moe_mlp` on a mesh, JAX's placements (``repro.models.moe``
+    :83-113) with collectives stated:
+
+    * ``x`` is batch-local, replicated over the model axis (``sc``). The
+      routing, the rank cumsum, the inverse scatter and the dispatch
+      gather run on each rank's batch shard (capacity is per sequence, so
+      no row needs another shard). The router (stored ``P(data, None)``)
+      is used whole: all-gathered, its gradient a partial sum over the
+      batch axes, reduce-scattered.
+    * Expert parallelism: when E divides the model axis (``axes.tp``)
+      each model rank gathers and runs only its E/tp experts (``buf`` laid
+      out ``(batch, model, None, None)``, a local slice with no
+      collective), with ``wi``/``wg``/``wo`` unsharded by ``uw`` to
+      ``(model, None, None)``: all-gathers over the fsdp axis, their
+      gradients reduce-scattered back. The dispatch's gradient to ``x`` is
+      then a partial sum over the model axis.
+    * The reverse exchange: ``out_buf`` returns to ``(batch, None, ...)``
+      before the combine by one all-gather over the model axis. Its
+      backward is a local slice: the combine runs whole on every model
+      rank, and the ``sc`` at the block exit hands it the whole gradient
+      (all-reduced there).
+    * When E does not divide the model axis every model rank runs all the
+      experts, replicated (JAX's ``axes.tp`` rule), and nothing is
+      exchanged.
+
+    The routing comes back as DTensors sharded as the batch rows, for
+    :func:`aux_load_balance_loss`."""
+    mesh = L.mesh_of(x, p["router"])
+    x = L.sc(x, axes, axes.batch, None, None)
+    e = cfg.n_experts
+    bdims = L._shard_dims(x.placements, 0)
+    m, tp, r = L.model_split(mesh, axes, e)
+    el = e // tp
+    e_ax = axes.model if m is not None else None
+    router = L.whole(p["router"], axes, bdims)
+    ws = [L.local(L.uw(p[n], axes, e_ax, None, None), bdims)
+          for n in ("wi", "wg", "wo")]
+    xr = x.to_local()
+    xd = xr if m is None else L.local(x, [m])
+    out_buf, (weights, idx, slot, w) = _dispatch_ffn(
+        router, *ws, xr, xd, cfg, r * el, el)
+    if m is not None:
+        b = x.shape[0]
+        out_buf = L.from_local(
+            out_buf, mesh, L.with_placement(x.placements, m, Shard(1)),
+            shape=(b, e, *out_buf.shape[2:]))
+        out_buf = out_buf.redistribute(mesh, x.placements).to_local()
+    out = L.from_local(_combine(out_buf, slot, w), mesh, x.placements,
+                       shape=x.shape)
+    out = L.sc(out, axes, axes.batch, None, None)
+    t = x.shape[0] * x.shape[1]
+    routing = tuple(L.from_local(v, mesh, x.placements,
+                                 shape=(t, v.shape[1]))
+                    for v in (weights, idx))
+    return L.checkpoint_name(out, "moe_out"), routing
 
 
 def aux_load_balance_loss(weights: torch.Tensor, idx: torch.Tensor,
                           n_experts: int) -> torch.Tensor:
-    """Switch-style load-balancing auxiliary loss."""
-    t, k = idx.shape
+    """Switch-style load-balancing auxiliary loss: E · Σ_e (share of
+    assignments to e) · (mean router mass on e), both over all T tokens.
+
+    For routing DTensors sharded as batch rows (:func:`_sharded_moe`) each
+    rank sums its rows, the two (E,) sums are all-reduced over the batch
+    axes and divided by the global T; the loss is replicated."""
+    mesh = None
+    if isinstance(weights, DTensor):
+        mesh, pl = weights.device_mesh, weights.placements
+        t = weights.shape[0]
+        weights, idx = weights.to_local(), idx.to_local()
+    else:
+        t = idx.shape[0]
     assign = F.one_hot(idx.long(), n_experts).float().sum(dim=1)  # (T, E)
-    frac_tokens = assign.mean(dim=0)
     # density of router probability mass per expert
-    full = torch.zeros((t, n_experts), dtype=weights.dtype,
+    full = torch.zeros((idx.shape[0], n_experts), dtype=weights.dtype,
                        device=weights.device)
     full = full.scatter_add(1, idx.long(), weights)
-    frac_probs = full.mean(dim=0)
-    return n_experts * torch.sum(frac_tokens * frac_probs)
+    sums = torch.stack([assign.sum(dim=0), full.sum(dim=0)])
+    if mesh is not None:
+        sums = L.psum(sums, mesh, L._shard_dims(pl, 0))
+    frac_tokens, frac_probs = sums / t
+    loss = n_experts * torch.sum(frac_tokens * frac_probs)
+    if mesh is None:
+        return loss
+    return L.from_local(loss, mesh, [Replicate()] * mesh.ndim)
 
 
 def routing_as_ell(weights: torch.Tensor, idx: torch.Tensor,

@@ -10,11 +10,13 @@ here to port.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.models import layers as L
 
@@ -58,12 +60,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if state is None and not return_state:
         return y
     return y, xp[:, -(width - 1):, :]
-
-
-def _split_proj(cfg, proj):
-    di, n = cfg.d_inner, cfg.ssm_state
-    return (proj[..., :di], proj[..., di:di + di + 2 * n],
-            proj[..., di + di + 2 * n:])
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -130,32 +126,141 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg, axes=None,
     serving prefills a prompt in one pass and continues with
     :func:`mamba_decode`. A length that ``ssm_chunk`` does not divide
     takes the largest common divisor as its chunk (the same recurrence,
-    smaller chunks)."""
+    smaller chunks). Under a mesh it is :func:`_sharded_mamba`."""
     if axes is not None:
-        L.check_unsharded(axes, "the SSD mixer", x)
-        return L.on_local(mamba_apply, axes, p, x, cfg,
-                          return_state=return_state)
+        return _sharded_mamba(p, x, cfg, axes, return_state)
+    out, state = _mix(p, x, cfg, cfg.ssm_heads, _split_norm(cfg))
+    if return_state:
+        return out, state
+    return out
+
+
+def _mix(w: dict, x: torch.Tensor, cfg, hl: int, norm):
+    """The mixer over ``hl`` heads on local tensors: ``w`` holds
+    ``in_proj`` columns [z, x, B, C, dt] of those heads (B and C whole),
+    the conv's [x, B, C] channels, their per-head leaves and ``norm_z``
+    slice, and ``out_proj`` rows; ``norm`` is the gated RMSNorm over the
+    whole d_inner. Returns (out, {"h", "conv"})."""
     bsz, s, _ = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    proj = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
-    z, xbc, dt = _split_proj(cfg, proj)
-    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    dl = hl * hp
+    proj = torch.einsum("bsd,dk->bsk", x, w["in_proj"])
+    z, xbc, dt = (proj[..., :dl], proj[..., dl:dl + dl + 2 * n],
+                  proj[..., dl + dl + 2 * n:])
+    xbc, conv_state = _causal_conv(xbc, w["conv_w"], w["conv_b"],
                                    return_state=True)
-    xs, b, c = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
-    dt = F.softplus(dt.float() + p["dt_bias"])
-    a_head = -torch.exp(p["A_log"])
-    xh = xs.reshape(bsz, s, h, cfg.ssm_head_dim)
+    xs, b, c = xbc[..., :dl], xbc[..., dl:dl + n], xbc[..., dl + n:]
+    dt = F.softplus(dt.float() + w["dt_bias"])
+    a_head = -torch.exp(w["A_log"])
+    xh = xs.reshape(bsz, s, hl, hp)
     chunk = min(cfg.ssm_chunk, s)
     if s % chunk:
         chunk = math.gcd(chunk, s)
     y, h_last = ssd_chunked(xh, dt, a_head, b, c, chunk)
-    y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(bsz, s, di).to(x.dtype)
-    y = L.rmsnorm(y * F.silu(z), p["norm_z"], cfg.norm_eps)
-    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
-    if return_state:
-        return out, {"h": h_last, "conv": conv_state}
-    return out
+    y = y + w["D"][None, None, :, None] * xh.float()
+    y = y.reshape(bsz, s, dl).to(x.dtype)
+    y = norm(y * F.silu(z), w["norm_z"])
+    out = torch.einsum("bsk,kd->bsd", y, w["out_proj"])
+    return out, {"h": h_last, "conv": conv_state}
+
+
+def _local_weights(p: dict, cfg, axes, m, tp: int, r: int, pdims, bdims):
+    """This rank's mixer weights (:func:`_mix`) for its heads ``[r·h/tp,
+    (r+1)·h/tp)``: ``in_proj``, ``conv_w``, ``conv_b`` and the per-head
+    leaves used whole (all-gathered; gradients partial over ``pdims``)
+    and sliced to the heads' z, x and dt channels and the whole of B and
+    C (2n channels that every head reads); ``out_proj`` unsharded at its
+    use layout ``(model, None)`` (``(None, None)`` when the heads are not
+    split), its rows the heads' d_inner slice."""
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    hl = h // tp
+    dl = hl * cfg.ssm_head_dim
+    w = {k: L.whole(p[k], axes, pdims)
+         for k in ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+                   "norm_z")}
+    if m is None:
+        w["out_proj"] = L.whole(p["out_proj"], axes, bdims)
+        return w
+    z0, t0 = r * dl, 2 * di + 2 * n + r * hl
+    wi = w["in_proj"]
+    w["in_proj"] = torch.cat([wi[:, z0:z0 + dl], wi[:, di + z0:di + z0 + dl],
+                              wi[:, 2 * di:2 * di + 2 * n], wi[:, t0:t0 + hl]],
+                             dim=1)
+    for k in ("conv_w", "conv_b"):
+        w[k] = torch.cat([w[k][..., z0:z0 + dl], w[k][..., di:]], dim=-1)
+    for k in ("A_log", "D", "dt_bias"):
+        w[k] = w[k][r * hl:(r + 1) * hl]
+    w["norm_z"] = w["norm_z"][z0:z0 + dl]
+    w["out_proj"] = L.local(L.uw(p["out_proj"], axes, axes.model, None,
+                                 fsdp_dim=1), bdims)
+    return w
+
+
+def _split_norm(cfg, mesh=None, m=None):
+    """The gated RMSNorm over d_inner, split over the model dim ``m``."""
+    return functools.partial(L.split_rmsnorm, eps=cfg.norm_eps,
+                             n=cfg.d_inner, mesh=mesh,
+                             dims=() if m is None else (m,))
+
+
+def _state(state: dict, mesh, cfg, m, row_placements, b: int) -> dict:
+    """The decode state of this rank's rows and heads (``h`` (b, hl, P,
+    N), ``conv`` (b, W-1, [x of its heads, B, C])) as DTensors: ``h``
+    with rows as ``row_placements`` and heads over the model dim ``m``;
+    ``conv`` whole, replicated on every mesh dim (its x channels
+    all-gathered over the rows' and heads' dims, B and C, the same on
+    every model rank, over the rows' dims only: the heads' channels do
+    not line up with the cache's shards of the conv width)."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    rep = [Replicate()] * mesh.ndim
+    hpl = L.with_placement(row_placements, m, Shard(1))
+    xpl = L.with_placement(row_placements, m, Shard(2))
+    dl = state["conv"].shape[2] - 2 * n
+    w1 = state["conv"].shape[1]
+    h = L.from_local(state["h"], mesh, hpl,
+                     shape=(b, cfg.ssm_heads, *state["h"].shape[2:]))
+    cx = L.from_local(state["conv"][..., :dl], mesh, xpl, shape=(b, w1, di))
+    cbc = L.from_local(state["conv"][..., dl:], mesh, row_placements,
+                       shape=(b, w1, 2 * n))
+    conv = torch.cat([cx.redistribute(mesh, rep).to_local(),
+                      cbc.redistribute(mesh, rep).to_local()], dim=2)
+    return {"h": h, "conv": L.from_local(conv, mesh, rep)}
+
+
+def _sharded_mamba(p: dict, x, cfg, axes: L.Axes, return_state: bool):
+    """:func:`mamba_apply` on a mesh. JAX shards ``in_proj``'s output
+    (z | x | B | C | dt, K = 2·d_inner + 2n + h) over the model axis and
+    uses ``out_proj`` as ``(d_inner, None)``; K's shards do not line up
+    with its parts (mamba2-370m: K = 4384 = 16·274, and shard 7 holds the
+    end of z and the start of x). Here the heads split over the model axis
+    when ``axes.tp(ssm_heads)`` allows it: each rank takes its heads' z,
+    x and dt columns and the whole of B and C from ``in_proj`` used whole
+    (its stored shards all-gathered, its gradient reduce-scattered back),
+    runs the conv on its channels and the chunked scan on its heads, and
+    its ``y`` is d_inner sharded over the model axis, the rows of
+    ``out_proj``'s use layout ``(model, None)``. The gated RMSNorm over
+    d_inner all-reduces each row's sum of squares ((B, S) floats); the
+    out-projection's partial sums are all-reduced at the exit (``sc``).
+    When the heads do not divide the model axis every model rank runs all
+    heads, replicated. The batch stays sharded over the batch axes.
+
+    ``return_state`` returns the cache as :func:`_state` lays it out; the
+    caller lays it out as its cache."""
+    mesh = L.mesh_of(x, p["in_proj"])
+    x = L.sc(x, axes, axes.batch, None, None)
+    bdims = L._shard_dims(x.placements, 0)
+    m, tp, r = L.model_split(mesh, axes, cfg.ssm_heads)
+    mdims = [] if m is None else [m]
+    w = _local_weights(p, cfg, axes, m, tp, r, bdims + mdims, bdims)
+    out, state = _mix(w, L.local(x, mdims), cfg, cfg.ssm_heads // tp,
+                      _split_norm(cfg, mesh, m))
+    out = L.from_local(out, mesh, L.with_placement(x.placements, m,
+                                                   Partial()),
+                       shape=x.shape)
+    out = L.sc(out, axes, axes.batch, None, None)
+    if not return_state:
+        return out
+    return out, _state(state, mesh, cfg, m, x.placements, x.shape[0])
 
 
 def init_mamba_cache(cfg, batch: int, dtype, device=None) -> dict:
@@ -172,26 +277,69 @@ def init_mamba_cache(cfg, batch: int, dtype, device=None) -> dict:
 
 def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg, axes=None
                  ) -> Tuple[torch.Tensor, dict]:
-    """One-token recurrent update. x (B, 1, D) -> (out, new cache)."""
+    """One-token recurrent update. x (B, 1, D) -> (out, new cache). Under
+    a mesh it is :func:`_sharded_mamba_decode`."""
     if axes is not None:
-        L.check_unsharded(axes, "the SSD decode", x)
-        return L.on_local(mamba_decode, axes, p, x, cache, cfg)
+        return _sharded_mamba_decode(p, x, cache, cfg, axes)
+    return _step(p, x, cache, cfg, cfg.ssm_heads, _split_norm(cfg))
+
+
+def _step(w: dict, x: torch.Tensor, cache: dict, cfg, hl: int, norm):
+    """One decode step over ``hl`` heads on local tensors (``w`` and the
+    cache's channels and heads as :func:`_mix` takes them)."""
     bsz = x.shape[0]
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    proj = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
-    z, xbc, dt = _split_proj(cfg, proj)
-    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    dl = hl * hp
+    proj = torch.einsum("bsd,dk->bsk", x, w["in_proj"])
+    z, xbc, dt = (proj[..., :dl], proj[..., dl:dl + dl + 2 * n],
+                  proj[..., dl + dl + 2 * n:])
+    xbc, conv_state = _causal_conv(xbc, w["conv_w"], w["conv_b"],
                                    state=cache["conv"])
-    xs, b, c = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
-    dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]                  # (B, H)
-    a = torch.exp(dt * (-torch.exp(p["A_log"]))[None, :])             # (B, H)
-    xh = xs[:, 0].reshape(bsz, h, cfg.ssm_head_dim).float()
+    xs, b, c = xbc[..., :dl], xbc[..., dl:dl + n], xbc[..., dl + n:]
+    dt = F.softplus(dt.float() + w["dt_bias"])[:, 0]                  # (B, H)
+    a = torch.exp(dt * (-torch.exp(w["A_log"]))[None, :])             # (B, H)
+    xh = xs[:, 0].reshape(bsz, hl, hp).float()
     bt = b[:, 0].float()                                              # (B, N)
     ct = c[:, 0].float()
     h_new = (cache["h"] * a[..., None, None]
              + torch.einsum("bhp,bn,bh->bhpn", xh, bt, dt))
-    y = torch.einsum("bn,bhpn->bhp", ct, h_new) + p["D"][None, :, None] * xh
-    y = y.reshape(bsz, 1, di).to(x.dtype)
-    y = L.rmsnorm(y * F.silu(z), p["norm_z"], cfg.norm_eps)
-    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
+    y = torch.einsum("bn,bhpn->bhp", ct, h_new) + w["D"][None, :, None] * xh
+    y = y.reshape(bsz, 1, dl).to(x.dtype)
+    y = norm(y * F.silu(z), w["norm_z"])
+    out = torch.einsum("bsk,kd->bsd", y, w["out_proj"])
     return out, {"h": h_new, "conv": conv_state}
+
+
+def _sharded_mamba_decode(p: dict, x, cache: dict, cfg, axes: L.Axes):
+    """:func:`mamba_decode` on a mesh: the heads split over the model axis
+    as in :func:`_sharded_mamba`, the whole batch on every rank (the
+    caches of ``cache_pspecs`` are replicated over the batch axes; the
+    one-token input is all-gathered instead). The conv cache (sharded
+    over the model axis along its channels, whose shards do not line up
+    with the heads) is all-gathered and each rank takes its heads' x
+    channels and B, C; ``h`` (replicated) is sliced to its heads. The new
+    ``h`` and conv's x channels are all-gathered over the model axis and
+    laid out as the cache given."""
+    mesh = L.mesh_of(x, cache["h"], p["in_proj"])
+    x = L.sc(x, axes, None, None, None)
+    rep = tuple([Replicate()] * mesh.ndim)
+    m, tp, r = L.model_split(mesh, axes, cfg.ssm_heads)
+    mdims = [] if m is None else [m]
+    hl = cfg.ssm_heads // tp
+    dl, di = hl * cfg.ssm_head_dim, cfg.d_inner
+    w = _local_weights(p, cfg, axes, m, tp, r, mdims, [])
+    cache = {k: L.replicate(v, mesh) for k, v in cache.items()}
+    conv = cache["conv"].redistribute(mesh, rep).to_local()
+    if m is not None:
+        conv = torch.cat([conv[..., r * dl:(r + 1) * dl], conv[..., di:]],
+                         dim=-1)
+    h = cache["h"].redistribute(
+        mesh, L.with_placement(rep, m, Shard(1))).to_local()
+    out, state = _step(w, x.to_local(), {"h": h, "conv": conv}, cfg, hl,
+                       _split_norm(cfg, mesh, m))
+    out = L.from_local(out, mesh, L.with_placement(rep, m, Partial()),
+                       shape=x.shape)
+    out = L.sc(out, axes, axes.batch, None, None)
+    new = _state(state, mesh, cfg, m, rep, x.shape[0])
+    return out, {k: new[k].redistribute(mesh, cache[k].placements)
+                 for k in new}

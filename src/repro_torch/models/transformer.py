@@ -15,8 +15,9 @@ through a learned adapter.
 ``axes`` (an :class:`~repro_torch.models.layers.Axes`) runs a model
 sharded: params, inputs and caches are DTensors on one mesh (a plain
 leaf counts as replicated), and the layers place activations as JAX's
-sharding constraints do. The ``moe``, ``ssm`` and ``recurrent`` blocks run
-under a mesh of one device only (``layers.check_unsharded``).
+sharding constraints do, every block kind on any mesh: the MoE experts
+over the model axis, the SSD heads and the RG-LRU width over it where
+they divide it.
 """
 from __future__ import annotations
 
@@ -201,8 +202,7 @@ def _apply_block(kind: str, p: dict, x, cfg, axes, positions, aux,
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
     y, routing = _ffn(p, kind, h2, cfg, axes)
     if routing is not None:
-        aux = aux + L.on_local(M.aux_load_balance_loss, axes, *routing,
-                               cfg.n_experts)
+        aux = aux + M.aux_load_balance_loss(*routing, cfg.n_experts)
     return x + y, aux
 
 
@@ -352,7 +352,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
     """Decode cache tree mirroring the block structure, zeros on
     ``device`` (the caller resolves it): K/V of ``s_max`` positions for an
     attention block (and cross K/V of ``enc_len`` for enc-dec), the
-    recurrent state of an SSD or RG-LRU block."""
+    recurrent state of an SSD or RG-LRU block. For the mesh path
+    ``sharding.cache_pspecs`` lays it out (``distribute``)."""
     check_supported(cfg)
     dtype = dtype or cfg.param_dtype
     n_periods, period, tail = cfg.pattern_split()
@@ -423,6 +424,18 @@ def _write_prefix(cache, kv, axes):
     return L.from_local(out, mesh, cpl)
 
 
+def _as_cache(state: dict, c: dict) -> dict:
+    """A recurrent block's prefilled ``state`` in the dtypes of the cache
+    ``c`` and, under a mesh, its placements."""
+    out = {}
+    for k, v in state.items():
+        v = v.to(c[k].dtype)
+        if hasattr(v, "placements") and v.placements != c[k].placements:
+            v = v.redistribute(v.device_mesh, c[k].placements)
+        out[k] = v
+    return out
+
+
 def _prefill_block(kind: str, p: dict, c: dict, x, positions, cfg, axes):
     """Full-sequence twin of :func:`_decode_block`: the block output for
     the whole prompt in parallel, plus the decode cache after it (K/V
@@ -433,12 +446,12 @@ def _prefill_block(kind: str, p: dict, c: dict, x, positions, cfg, axes):
         y, st = S.mamba_apply(p["mix"],
                               L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg,
                               axes, return_state=True)
-        return x + y, {"h": st["h"], "conv": st["conv"].to(c["conv"].dtype)}
+        return x + y, _as_cache(st, c)
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     if kind == "recurrent":
         y, st = R.rglru_apply(p["rec"], h, cfg, axes, return_state=True)
         x = x + y
-        c2 = {"h": st["h"], "conv": st["conv"].to(c["conv"].dtype)}
+        c2 = _as_cache(st, c)
     else:
         window = cfg.sliding_window if kind == "local" else None
         x = x + L.attention(p["attn"], h, cfg, axes, positions=positions,

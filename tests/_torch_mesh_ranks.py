@@ -17,6 +17,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.checkpoint import restore, save
 from repro_torch.common.pytree import tree_leaves, tree_map
@@ -25,17 +26,20 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.launch.mesh import axis_sizes, make_mesh, set_mesh
 from repro_torch.models import build
 from repro_torch.models.layers import Axes, uw
+from repro_torch.models.moe import init_moe, moe_mlp
 from repro_torch.models.zoo import params_from_numpy
 from repro_torch.optim import AdamWConfig
 from repro_torch.serve.engine import make_decode_step
 from repro_torch.sharding import (
+    NamedSharding,
     P,
     cache_pspecs,
     distribute,
+    leaf_spec,
     named_shardings,
     param_pspecs,
 )
-from repro_torch.train import TrainConfig, make_train_step
+from repro_torch.train import TrainConfig, init_train_state, make_train_step
 from repro_torch.train.step import train_state_from_numpy
 
 CPU = "cpu"
@@ -101,6 +105,75 @@ def sharded_step(arch, cfg, host, batch, mesh):
     return (s1, m1), (s8, m8), counts(cm)
 
 
+def placements_kept(s1, s8, mesh) -> bool:
+    """The sharded step's new state lies as ``state_specs`` lays it out."""
+    specs = tlaunch.state_specs(s1, param_pspecs(s1["params"],
+                                                 axis_sizes(mesh)))
+    return all(a.placements == b.placements for a, b in zip(
+        tree_leaves(s8), tree_leaves(distribute(s1, named_shardings(
+            specs, mesh)))))
+
+
+#: Reduced configs whose heads, experts or RG-LRU width do not divide a
+#: model axis of 4.
+UNDIVIDED = {"olmoe-1b-7b": {"n_experts": 6},
+             "mamba2-370m": {"ssm_head_dim": 64},
+             "recurrentgemma-2b": {"rglru_width": 66}}
+
+
+class Collectives(TorchDispatchMode):
+    """Records each functional collective under it: (op, mesh axis of its
+    group, number of elements of its input)."""
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.axis = {mesh.get_group(i).group_name: n
+                     for i, n in enumerate(mesh.mesh_dim_names)}
+        self.rows = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        name = func.name()
+        groups = [a for a in (*args, *kwargs.values())
+                  if isinstance(a, str) and a in self.axis]
+        if name.startswith("_c10d_functional::") and groups:
+            self.rows.append([name.split("::")[-1], self.axis[groups[-1]],
+                              args[0].numel()])
+        return func(*args, **kwargs)
+
+
+def moe_collectives(mesh) -> dict:
+    """One olmoe (reduced) MoE FFN on the (2, 4) mesh, its params laid out
+    by ``param_pspecs``'s rules, a batch of 8 x 16 over the data axis:
+    the collectives of its forward and of its backward, the grads'
+    placements against the stored ones, and the local sizes that name
+    them (the expert weights' use layout, the reverse exchange's input)."""
+    cfg = get_reduced("olmoe-1b-7b")
+    sizes = axis_sizes(mesh)
+    p = init_moe(torch.Generator().manual_seed(4), cfg, torch.float32)
+    specs = {k: leaf_spec(k, tuple(v.shape), sizes) for k, v in p.items()}
+    sp = {k: v.requires_grad_() for k, v in distribute(
+        p, named_shardings(specs, mesh)).items()}
+    x = distribute(torch.randn(8, 16, cfg.d_model,
+                               generator=torch.Generator().manual_seed(5)),
+                   NamedSharding(mesh, P("data"))).requires_grad_()
+    with set_mesh(mesh), Collectives(mesh) as fwd:
+        out, _ = moe_mlp(sp, x, cfg, axes_for(mesh))
+    loss = (out * out).sum()
+    with Collectives(mesh) as bwd:
+        loss.backward()
+    e_local = cfg.n_experts // sizes["model"]
+    cap = max(8, int(16 * cfg.experts_per_token * cfg.capacity_factor
+                     / cfg.n_experts))
+    return {"fwd": fwd.rows, "bwd": bwd.rows,
+            "expert_numel": e_local * cfg.d_model * cfg.d_ff,
+            "exchange_numel": 4 * e_local * cap * cfg.d_model,
+            "grads_as_stored": {k: sp[k].grad.placements == sp[k].placements
+                                for k in sp}}
+
+
 def main(d: str) -> None:
     mesh = make_mesh((2, 4), ("data", "model"), "cpu")
     rank = dist.get_rank()
@@ -122,11 +195,7 @@ def main(d: str) -> None:
         "param_diff_port": max_diff(s1["params"], s8["params"]),
         "m_rel_port": rel_diff(s1["opt"]["m"], s8["opt"]["m"]),
         "comms": cc,
-        "placements_kept": all(
-            a.placements == b.placements for a, b in zip(
-                tree_leaves(s8), tree_leaves(distribute(s1, named_shardings(
-                    tlaunch.state_specs(s1, param_pspecs(
-                        s1["params"], axis_sizes(mesh))), mesh))))),
+        "placements_kept": placements_kept(s1, s8, mesh),
     }
 
     # -- gemma3-1b reduced (2 heads on a model axis of 4: the
@@ -232,21 +301,81 @@ def main(d: str) -> None:
         "mesh_b": str(one.device_mesh.mesh.shape),
         "jax_exact": max_diff(rp, jgot) == 0.0, "jax_step": jman["step"]}
 
-    # -- moe, ssm and recurrent under a mesh of 8 devices raise.
-    raised = {}
-    for arch in ("olmoe-1b-7b", "mamba2-370m", "recurrentgemma-2b"):
-        acfg = get_reduced(arch)
-        am = build(acfg)
-        ap = am.init(torch.Generator().manual_seed(0), device=CPU)
-        try:
-            with set_mesh(mesh):
-                am.forward(ap, {"tokens": torch.zeros((8, 8),
-                                                      dtype=torch.int32)},
-                           axes_for(mesh))
-            raised[arch] = "ran"
-        except NotImplementedError as e:
-            raised[arch] = str(e)
-    res["families"] = raised
+    # -- the MoE, SSD and RG-LRU archs reduced: the (2, 4) step against
+    # JAX's single-device step and the port's unsharded step; olmoe also
+    # under remat="block_save" (its aux loss against the unsharded one).
+    res["families"] = {}
+    for arch, f in inp["families"].items():
+        fcfg = get_reduced(arch)
+        (f1, fm1), (f8, fm8), fcc = sharded_step(arch, fcfg, f["state"],
+                                                 f["batch"], mesh)
+        fparams = params_from_numpy(f["jax_params"], fcfg, device=CPU)
+        res["families"][arch] = {
+            "loss_jax": f["jax_loss"], "loss1": float(fm1["loss"]),
+            "loss8": float(fm8["loss"]),
+            "param_diff_jax": max_diff(fparams, f8["params"]),
+            "m_rel_port": rel_diff(f1["opt"]["m"], f8["opt"]["m"]),
+            "placements_kept": placements_kept(f1, f8, mesh), "comms": fcc}
+    ocfg = dataclasses.replace(get_reduced("olmoe-1b-7b"),
+                               remat="block_save")
+    o = inp["families"]["olmoe-1b-7b"]
+    (o1, om1), (o8, om8), _ = sharded_step("olmoe-1b-7b", ocfg, o["state"],
+                                           o["batch"], mesh)
+    res["olmoe_block_save"] = {
+        "loss1": float(om1["loss"]), "loss8": float(om8["loss"]),
+        "aux1": float(om1["aux"]), "aux8": float(om8["aux"]),
+        "m_rel_port": rel_diff(o1["opt"]["m"], o8["opt"]["m"])}
+
+    # -- one olmoe MoE FFN on (2, 4), forward and backward, its
+    # collectives by mesh axis.
+    res["moe_comms"] = moe_collectives(mesh)
+
+    # -- decode on (2, 4) with cache_pspecs caches against JAX's plain
+    # decode_step.
+    res["decode"] = {}
+    for arch, dec in inp["decode"].items():
+        dcfg = get_reduced(arch)
+        dmodel = build(dcfg)
+        dparams = params_from_numpy(dec["params"], dcfg, device=CPU)
+        sizes = axis_sizes(mesh)
+        sp = distribute(dparams, named_shardings(param_pspecs(dparams, sizes),
+                                                 mesh))
+        dcache = tree_map(torch.from_numpy, dec["cache"])
+        cspecs = named_shardings(cache_pspecs(dcache, ("data",), sizes), mesh)
+        with set_mesh(mesh):
+            lg, new = make_decode_step(dmodel, axes_for(mesh))(
+                sp, distribute(dcache, cspecs),
+                torch.from_numpy(dec["tokens"]), torch.from_numpy(dec["pos"]))
+        want = tree_map(torch.from_numpy, dec["jax_cache"])
+        res["decode"][arch] = {
+            "diff_jax": float((full(lg) - torch.from_numpy(
+                dec["jax_logits"])).abs().max()),
+            "cache_diff_jax": max_diff(want, new),
+            "placements_kept": all(
+                a.placements == b.placements for a, b in zip(
+                    tree_leaves(new), tree_leaves(distribute(want, cspecs))))}
+
+    # -- heads, experts and width that do not divide the model axis: each
+    # model rank runs all of them; the logits and one step against the
+    # port's unsharded ones.
+    res["undivided"] = {}
+    for arch, over in UNDIVIDED.items():
+        ucfg = dataclasses.replace(get_reduced(arch), **over)
+        host = tree_map(lambda t: t.numpy(), init_train_state(
+            build(ucfg), tcfg_for(), torch.Generator().manual_seed(0), CPU))
+        (u1, um1), (u8, um8), _ = sharded_step(
+            arch, ucfg, host, inp["families"][arch]["batch"], mesh)
+        res["undivided"][arch] = {"loss1": float(um1["loss"]),
+                                  "loss8": float(um8["loss"]),
+                                  "m_rel_port": rel_diff(u1["opt"]["m"],
+                                                         u8["opt"]["m"])}
+
+    # -- the launcher's mesh path on (2, 4) for the MoE arch.
+    rep = tlaunch.main(["--arch", "olmoe-1b-7b", "--mesh", "2x4", "--steps",
+                        "2", "--batch", "8", "--seq", "16", "--ckpt-dir",
+                        os.path.join(d, "ck_launch_moe")], device="cpu")
+    res["launch_moe"] = {"steps": rep.steps_run, "restarts": rep.restarts,
+                         "loss": rep.final_metrics["loss"]}
 
     # -- the launcher's mesh path on (2, 4).
     rep = tlaunch.main(["--mesh", "2x4", "--steps", "2", "--batch", "8",

@@ -1,9 +1,10 @@
 """The port's launch layer (``repro_torch.launch.mesh`` and
 ``repro_torch.launch.dryrun``) against ``repro.launch``: the input specs
 of all 40 (arch × shape) cells, ``skip_reason`` and ``TRAIN_TUNING``,
-the production meshes on torch's fake backend, and the one-cell
-multi-pod dry run (a subprocess: the dry run starts a fake group of 512
-ranks)."""
+the production meshes on torch's fake backend, the one-cell multi-pod dry
+run (a subprocess: the dry run starts a fake group of 512 ranks), and a
+cell each of an MoE arch and an SSD arch (their experts and heads over
+the model axis)."""
 import json
 import os
 import subprocess
@@ -111,3 +112,22 @@ def test_one_cell_multipod_dryrun(tmp_path):
                                            "collective")
     assert sum(rec["collective"]["ops"].values()) > 0
     assert rec["memory"]["argument_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,shape,mesh,devices", [
+    ("olmoe-1b-7b", "decode_32k", "singlepod", 256),
+    ("mamba2-370m", "long_500k", "multipod", 512),
+])
+def test_moe_and_ssd_cells_dryrun(tmp_path, arch, shape, mesh, devices):
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    assert out.returncode == 0, out.stderr[-3000:]
+    with open(tmp_path / mesh / f"{arch}__{shape}.json") as f:
+        rec = json.load(f)
+    assert rec["ok"] and rec["devices"] == devices
+    assert rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
+    assert sum(rec["collective"]["ops"].values()) > 0
+    assert rec["collective"]["ici_bytes_per_chip"] > 0

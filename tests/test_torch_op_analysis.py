@@ -138,6 +138,26 @@ def test_counter_counts_local_ops_once():
                                        + 2 * 8 * 4) * 4
 
 
+def test_counter_keeps_no_tensor_alive():
+    """A counted op's inputs and outputs are freed when the program drops
+    them, without waiting for Python's cycle collector: a counted train
+    step holds no more memory than an uncounted one."""
+    import gc
+    import weakref
+
+    gc.disable()
+    try:
+        with H.OpCounter() as counter:
+            x = torch.ones(4, 4)
+            y = x * 2
+            refs = [weakref.ref(x), weakref.ref(y)]
+            del x, y
+        assert [r() for r in refs] == [None, None]
+        assert counter.live == 0
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("arch,kw", [
     ("qwen2.5-3b", {}),
     ("olmoe-1b-7b", {"capacity_factor": 16.0})])

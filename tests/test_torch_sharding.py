@@ -126,7 +126,7 @@ def test_to_placements_and_shard_tensor_on_tuple_axes(fake8):
 def test_unsharded_families_run_on_a_one_device_mesh(arch):
     """On a mesh of one device the placements are all Replicate, so the
     MoE dispatch and the scans run as they are: the logits equal the
-    unsharded forward's bit for bit. (On 8 ranks they raise:
+    unsharded forward's bit for bit. (On 8 ranks:
     tests/test_torch_sharded.py.)"""
     cfg = tconfigs.get_reduced(arch)
     model = tbuild(cfg)
