@@ -23,9 +23,20 @@ merge are torch ops on device tensors. The one host synchronisation is a
 batched fetch of the per-partition capacity needs (launch shapes are fixed
 per call), and those capacities are power-of-two bucketed as on the JAX
 side.
+
+Each layer of the sequential queue path opens a span of the port's tracer
+(``repro_torch.obs``): ``repro.queue`` around :func:`hetero_many_matmul`,
+``repro.sync`` around each host fetch, ``repro.schedule`` (in the
+scheduler), ``repro.task`` around each task, ``repro.convert`` (in
+``formats.ell``), ``repro.dispatch.<class>`` around each partition's
+kernel call and ``repro.merge``. They record only with tracing on, and
+are profiler ranges while a ``torch.profiler`` records; off, each site
+costs a flag check.
 """
 from __future__ import annotations
 
+import contextvars
+import itertools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,6 +53,14 @@ from repro_torch.core.workloads import Workload
 from repro_torch.formats.ell import bucket_capacity, dense_to_ell
 from repro_torch.formats.taxonomy import DataflowClass
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import TRACE
+
+#: Sequence numbers of this process's :func:`hetero_many_matmul` calls,
+#: and the one running (the ``queue`` of its ``repro.task`` spans).
+_QUEUES = itertools.count(1)
+_QUEUE: contextvars.ContextVar = contextvars.ContextVar("repro_queue",
+                                                        default=None)
+_DISPATCH_SPANS = {c: f"repro.dispatch.{c.value}" for c in DataflowClass}
 
 
 def _operand(x, device) -> torch.Tensor:
@@ -95,18 +114,20 @@ def _prep_operands(cls: DataflowClass, a, b, mirror: bool, caps):
 def _dispatch_partition(cls: DataflowClass, a, b, mirror: bool, block: int,
                         device):
     sized = dict(bm=block, bn=block, bk=block, device=device)
-    if cls == DataflowClass.GEMM:
-        return ops.gemm(a, b, **sized)
-    if cls == DataflowClass.SPMM:
-        if mirror:
-            return ops.spmm_mirror(a, b, bm=block, bn=block, device=device)
-        return ops.spmm(a, b, bm=block, bn=block, device=device)
-    if cls == DataflowClass.SPGEMM_INNER:
-        return ops.spgemm_inner(a, b, **sized)
-    if cls == DataflowClass.SPGEMM_OUTER:
-        return ops.spgemm_outer(a, b, **sized)
-    if cls == DataflowClass.SPGEMM_GUSTAVSON:
-        return ops.spgemm_gustavson(a, b, **sized)
+    with TRACE.span(_DISPATCH_SPANS[cls], cat="queue", mirror=mirror):
+        if cls == DataflowClass.GEMM:
+            return ops.gemm(a, b, **sized)
+        if cls == DataflowClass.SPMM:
+            if mirror:
+                return ops.spmm_mirror(a, b, bm=block, bn=block,
+                                       device=device)
+            return ops.spmm(a, b, bm=block, bn=block, device=device)
+        if cls == DataflowClass.SPGEMM_INNER:
+            return ops.spgemm_inner(a, b, **sized)
+        if cls == DataflowClass.SPGEMM_OUTER:
+            return ops.spgemm_outer(a, b, **sized)
+        if cls == DataflowClass.SPGEMM_GUSTAVSON:
+            return ops.spgemm_gustavson(a, b, **sized)
     raise ValueError(cls)
 
 
@@ -135,7 +156,7 @@ def prepare_partitions(jobs):
             rows.append((p, sa, sb, refs))
         sliced.append(rows)
     # One host sync for every capacity in the batch.
-    need_vals = torch.stack(needs).tolist() if needs else []
+    need_vals = _fetch(torch.stack(needs), "capacity") if needs else []
 
     prepared = []
     for rows in sliced:
@@ -156,6 +177,13 @@ def prepare_partitions(jobs):
     return prepared
 
 
+def _fetch(values: torch.Tensor, what: str) -> list:
+    """``values.tolist()``: a host sync, in a ``repro.sync`` span."""
+    with TRACE.span("repro.sync", cat="queue", what=what,
+                    values=values.numel()):
+        return values.tolist()
+
+
 def _merge_partials(shape, dtype, device, rows) -> torch.Tensor:
     """Merge ``rows = [(region, partial), ...]`` (partition order) into a
     zero output: K-split partials for the same output tile sum first, then
@@ -164,13 +192,14 @@ def _merge_partials(shape, dtype, device, rows) -> torch.Tensor:
     tiles: dict = {}
     for r, q in rows:
         tiles.setdefault((r.m0, r.m1, r.n0, r.n1), []).append(q)
-    out = torch.zeros(shape, dtype=dtype, device=device)
-    for (m0, m1, n0, n1), partials in tiles.items():
-        acc = partials[0].to(dtype)
-        for q in partials[1:]:
-            acc = acc + q.to(dtype)
-        out[m0:m1, n0:n1] += acc
-    return out
+    with TRACE.span("repro.merge", cat="queue", tiles=len(tiles)):
+        out = torch.zeros(shape, dtype=dtype, device=device)
+        for (m0, m1, n0, n1), partials in tiles.items():
+            acc = partials[0].to(dtype)
+            for q in partials[1:]:
+                acc = acc + q.to(dtype)
+            out[m0:m1, n0:n1] += acc
+        return out
 
 
 def _mesh_device(device, mesh):
@@ -260,8 +289,9 @@ def hetero_matmul(a, b, config: cm.AcceleratorConfig, block: int = 128,
     k2, n = b_d.shape
     assert k == k2
     if a_d.numel() and b_d.numel():
-        nz_a, nz_b = torch.stack([torch.count_nonzero(a_d),
-                                  torch.count_nonzero(b_d)]).tolist()
+        nz_a, nz_b = _fetch(torch.stack([torch.count_nonzero(a_d),
+                                         torch.count_nonzero(b_d)]),
+                            "density")
         d_mk, d_kn = nz_a / a_d.numel(), nz_b / b_d.numel()
     else:
         d_mk = d_kn = 0.0
@@ -397,11 +427,14 @@ def execute_assignments(assignments, operands_by_index,
             measure=measure, timeline_sink=timeline_sink)
 
     outs = {}
+    queue = _QUEUE.get()
     for asg, a_d, b_d in jobs:
-        parts = tuple(pp.partition for pp in asg.placed)
-        ks = KernelSchedule(asg.workload, config, parts, asg.report)
-        outs[asg.task_index] = execute_schedule(a_d, b_d, ks, block=block,
-                                                device=dev)
+        with TRACE.span("repro.task", cat="queue", queue=queue,
+                        task=asg.task_index, cls=asg.cls.value):
+            parts = tuple(pp.partition for pp in asg.placed)
+            ks = KernelSchedule(asg.workload, config, parts, asg.report)
+            outs[asg.task_index] = execute_schedule(a_d, b_d, ks,
+                                                    block=block, device=dev)
     return outs
 
 
@@ -464,23 +497,33 @@ def hetero_many_matmul(
     under ``policy``, and runs every assignment (on the stream executor
     with ``mesh``). Returns ``(outputs, schedule)``.
     """
-    dev = _mesh_device(device, mesh)
-    dense = [(_operand(a, dev), _operand(b, dev)) for a, b in pairs]
-    nnz = (torch.stack([torch.count_nonzero(x) for ab in dense for x in ab])
-           .tolist() if dense else [])
-    tasks = []
-    for i, (a, b) in enumerate(dense):
-        m, k = a.shape
-        k2, n = b.shape
-        assert k == k2, (a.shape, b.shape)
-        d_mk = nnz[2 * i] / a.numel() if a.numel() else 0.0
-        d_kn = nnz[2 * i + 1] / b.numel() if b.numel() else 0.0
-        tasks.append(Workload(f"task{i}", "api", m, k, n, d_mk, d_kn))
-    ms = schedule_many_kernels(config, tasks, policy=policy,
-                               arrivals=arrivals)
-    outs = execute_many_kernel_schedule(dense, ms, block=block, device=dev,
-                                        mesh=mesh)
-    return outs, ms
+    queue = next(_QUEUES)
+    token = _QUEUE.set(queue)
+    try:
+        with TRACE.span("repro.queue", cat="queue", queue=queue,
+                        tasks=len(pairs),
+                        policy=getattr(policy, "name", policy)):
+            dev = _mesh_device(device, mesh)
+            dense = [(_operand(a, dev), _operand(b, dev)) for a, b in pairs]
+            nnz = (_fetch(torch.stack([torch.count_nonzero(x)
+                                       for ab in dense for x in ab]),
+                          "density") if dense else [])
+            tasks = []
+            for i, (a, b) in enumerate(dense):
+                m, k = a.shape
+                k2, n = b.shape
+                assert k == k2, (a.shape, b.shape)
+                d_mk = nnz[2 * i] / a.numel() if a.numel() else 0.0
+                d_kn = nnz[2 * i + 1] / b.numel() if b.numel() else 0.0
+                tasks.append(Workload(f"task{i}", "api", m, k, n, d_mk,
+                                      d_kn))
+            ms = schedule_many_kernels(config, tasks, policy=policy,
+                                       arrivals=arrivals)
+            outs = execute_many_kernel_schedule(dense, ms, block=block,
+                                                device=dev, mesh=mesh)
+            return outs, ms
+    finally:
+        _QUEUE.reset(token)
 
 
 def cluster_submeshes(n_model_devices: int, config: cm.AcceleratorConfig):

@@ -1219,5 +1219,9 @@ def schedule_many_kernels(config: cm.AcceleratorConfig,
     ``tasks``) turns the schedule into an online queueing run whose
     wait/utilization aggregates land in ``schedule.stats``.
     """
-    pol = policy if isinstance(policy, SchedulingPolicy) else get_policy(policy)
-    return pol.schedule(config, tasks, arrivals)
+    with _trace_mod.TRACE.span("repro.schedule", cat="queue",
+                               tasks=len(tasks),
+                               policy=getattr(policy, "name", policy)):
+        pol = (policy if isinstance(policy, SchedulingPolicy)
+               else get_policy(policy))
+        return pol.schedule(config, tasks, arrivals)

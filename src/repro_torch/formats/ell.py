@@ -22,6 +22,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import TRACE
+
 PAD_ID = -1
 
 
@@ -82,39 +84,42 @@ def dense_to_ell(dense: torch.Tensor, major_axis: int, cap: int,
     batched capacity fetch instead (``core/hetero_matmul.py``).
     """
     assert dense.ndim == 2, dense.shape
-    work = dense if major_axis == 0 else dense.T
-    mask = work != 0
-    lens = mask.sum(dim=-1, dtype=torch.int32)
-    if strict:
-        worst = int(lens.max()) if lens.numel() else 0
-        if worst > cap:
-            raise ValueError(
-                f"dense_to_ell(strict=True): a fiber holds {worst} "
-                f"nonzeros but cap={cap} (major_axis={major_axis}, "
-                f"shape={tuple(dense.shape)}); raise the capacity (see "
-                "bucket_capacity) or drop strict if truncation is intended")
-    # A stable argsort of ~mask floats the nonzero coordinates (in
-    # ascending order) to the front of each fiber.
-    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
-    width = min(cap, work.shape[-1])
-    take = order[:, :width]
-    within = (torch.arange(width, device=dense.device)[None, :]
-              < torch.clamp(lens, max=width)[:, None])
-    ids = torch.where(within, take.to(torch.int32),
-                      torch.full_like(take, PAD_ID, dtype=torch.int32))
-    vals = torch.take_along_dim(work, take, dim=-1)
-    vals = torch.where(within, vals, torch.zeros_like(vals))
-    if width < cap:  # capacity exceeds minor size: pad out to static cap
-        pad = cap - width
-        ids = torch.nn.functional.pad(ids, (0, pad), value=PAD_ID)
-        vals = torch.nn.functional.pad(vals, (0, pad))
-    return EllMatrix(
-        vals=vals.contiguous(),
-        ids=ids.contiguous(),
-        lens=torch.clamp(lens, max=width),
-        shape=tuple(dense.shape),
-        major_axis=major_axis,
-    )
+    with TRACE.span("repro.convert", cat="queue", shape=tuple(dense.shape),
+                    major_axis=major_axis, cap=cap):
+        work = dense if major_axis == 0 else dense.T
+        mask = work != 0
+        lens = mask.sum(dim=-1, dtype=torch.int32)
+        if strict:
+            worst = int(lens.max()) if lens.numel() else 0
+            if worst > cap:
+                raise ValueError(
+                    f"dense_to_ell(strict=True): a fiber holds {worst} "
+                    f"nonzeros but cap={cap} (major_axis={major_axis}, "
+                    f"shape={tuple(dense.shape)}); raise the capacity (see "
+                    "bucket_capacity) or drop strict if truncation is "
+                    "intended")
+        # A stable argsort of ~mask floats the nonzero coordinates (in
+        # ascending order) to the front of each fiber.
+        order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
+        width = min(cap, work.shape[-1])
+        take = order[:, :width]
+        within = (torch.arange(width, device=dense.device)[None, :]
+                  < torch.clamp(lens, max=width)[:, None])
+        ids = torch.where(within, take.to(torch.int32),
+                          torch.full_like(take, PAD_ID, dtype=torch.int32))
+        vals = torch.take_along_dim(work, take, dim=-1)
+        vals = torch.where(within, vals, torch.zeros_like(vals))
+        if width < cap:  # capacity exceeds minor size: pad out to static cap
+            pad = cap - width
+            ids = torch.nn.functional.pad(ids, (0, pad), value=PAD_ID)
+            vals = torch.nn.functional.pad(vals, (0, pad))
+        return EllMatrix(
+            vals=vals.contiguous(),
+            ids=ids.contiguous(),
+            lens=torch.clamp(lens, max=width),
+            shape=tuple(dense.shape),
+            major_axis=major_axis,
+        )
 
 
 def ell_to_dense(e: EllMatrix) -> torch.Tensor:

@@ -32,14 +32,24 @@ it so timelines recorded elsewhere (e.g. the pipelined executor's
 ``origin``-relative :class:`~repro_torch.core.stream_exec.SpanTiming`) land on
 the shared timebase.
 
+**Profiler ranges.** While a ``torch.profiler`` records, a
+:meth:`Tracer.span` also opens a profiler range of its name (a
+``record_function`` range, through ``torch._C._profiler``'s
+``_RecordFunctionFast``, which costs a tenth of ``record_function``'s
+context manager), with or without :data:`ENABLED`: the span then lies on
+the profiler's clock beside the device's events, where a reader of the
+profile can name the device's idle gaps after it. Torch's modules are
+looked up in ``sys.modules``, so a process that never imported torch
+never profiles and this module never imports it.
+
 **Disabled-path guarantee (§8).** Tracing is off by default. The
 module-level :data:`ENABLED` flag is checked before *any* allocation:
 every recording method early-returns and :meth:`Tracer.span` hands back a
-shared no-op context manager, so instrumented hot loops pay one global
-load + branch per site (gated in the JAX package's
-``tests/test_obs.py``). With tracing off, instrumented code paths
-are bit-identical to uninstrumented ones — recording never influences a
-decision.
+shared no-op context manager (after one more check, that no profiler
+records), so instrumented hot loops pay a global load + branch per site
+and open no profiler range. With tracing off, instrumented code
+paths are bit-identical to uninstrumented ones — recording never
+influences a decision.
 
 Stdlib only — this module must stay importable from every layer
 (kernels, scheduler, serving, benchmarks) without dragging torch or numpy in.
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import sys
 import threading
 import time
 from collections import deque
@@ -101,21 +112,43 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+#: ``torch.autograd.profiler`` once some module has imported torch.
+_profiler_mod = None
+
+
+def _profiler_range():
+    """The type of a profiler range of a name while a torch profiler
+    records, else None."""
+    global _profiler_mod
+    mod = _profiler_mod
+    if mod is None:
+        mod = _profiler_mod = sys.modules.get("torch.autograd.profiler")
+        if mod is None:
+            return None
+    if not mod._is_profiler_enabled:
+        return None
+    return sys.modules["torch._C._profiler"]._RecordFunctionFast
+
 
 class _Span:
-    """Live wall-clock span; records a ``ph:"X"`` event on exit."""
+    """Live wall-clock span; records a ``ph:"X"`` event on exit, inside
+    the profiler range ``rng`` when one is given."""
 
-    __slots__ = ("_tracer", "name", "cat", "pid", "tid", "args", "_t0")
+    __slots__ = ("_tracer", "name", "cat", "pid", "tid", "args", "_t0",
+                 "_rng")
 
-    def __init__(self, tracer, name, cat, pid, tid, args):
+    def __init__(self, tracer, name, cat, pid, tid, args, rng=None):
         self._tracer = tracer
         self.name = name
         self.cat = cat
         self.pid = pid
         self.tid = tid
         self.args = args
+        self._rng = rng
 
     def __enter__(self):
+        if self._rng is not None:
+            self._rng.__enter__()
         self._t0 = time.perf_counter()
         return self
 
@@ -125,6 +158,8 @@ class _Span:
         tr.complete(self.name, tr.ts_from_perf(self._t0),
                     (t1 - self._t0) * 1e6, pid=self.pid, tid=self.tid,
                     cat=self.cat, **self.args)
+        if self._rng is not None:
+            self._rng.__exit__(*exc)
         return False
 
 
@@ -211,10 +246,14 @@ class Tracer:
     def span(self, name: str, *, pid: int = PID_HOST, tid: Tid = 0,
              cat: str = "", **args):
         """Wall-clock span context manager; no-op singleton when
-        disabled (zero allocation on the disabled path)."""
+        disabled (zero allocation on the disabled path). While a torch
+        profiler records, the span is also a profiler range
+        of ``name`` (the range alone when disabled)."""
+        rng = _profiler_range()
         if not ENABLED:
-            return _NULL_SPAN
-        return _Span(self, name, cat, pid, tid, args)
+            return _NULL_SPAN if rng is None else rng(name)
+        return _Span(self, name, cat, pid, tid, args,
+                     None if rng is None else rng(name))
 
     # ---------------------------------------------------------- metadata
     def name_thread(self, pid: int, tid: int, name: str) -> None:

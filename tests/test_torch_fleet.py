@@ -83,6 +83,13 @@ def fleet_run(pkg, trace_kw=None, plan=None, trace_fn=None, **fleet_kw):
     return fr, deltas(o, before)
 
 
+def shipped(snapshot):
+    """A shipped registry snapshot without the JAX registry's histograms
+    (none is ever observed), which the port's registry does not have."""
+    assert snapshot.get("histograms", {}) == {}
+    return {k: v for k, v in snapshot.items() if k != "histograms"}
+
+
 def outcome_view(fl, fr):
     """Everything of a ``FleetResult`` of the package whose fleet module is
     ``fl`` that is plain values: the JSON, admission log, shipped
@@ -90,7 +97,8 @@ def outcome_view(fl, fr):
     return {
         "json": json.dumps(fl.fleet_result_to_json(fr), sort_keys=True),
         "admission_log": [dataclasses.asdict(e) for e in fr.admission_log],
-        "metrics_timeline": list(fr.metrics_timeline),
+        "metrics_timeline": [(t, rid, shipped(snap))
+                             for t, rid, snap in fr.metrics_timeline],
         "replicas": [(ro.rid, ro.index, ro.alive, ro.draining,
                       ro.death_cycles, ro.stall_cycles, ro.spawned_cycles,
                       ro.n_batches, ro.admitted, len(ro.retired),
