@@ -47,7 +47,18 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    sparse bodies, the outer reference body, the chunked kernel of the
    three reference bodies and the GEMM) at every launch shape. The fiber
    scan those bodies run before their rank update is held against its
-   plain versions (kinds, chunk starts, live groups).
+   plain versions (kinds, chunk starts, live groups). Last the
+   conversion's kernels (``kernels/ell_convert.py``, ``ell`` lines)
+   against ``dense_to_ell_plain``, bit for bit and timed beside their
+   bound: bibd_81_3's conversions with n cut to 16000 (B 85000 x 16000
+   by rows, A 3200 x 85000 by rows and by columns), m3plates' B, speech's
+   A and gnmt's B by columns; slices, views with neither stride 1,
+   truncating and wide caps, bfloat16, NaN and -0.0, no fibers, no minor
+   length and ``strict``; then one ``hetero_many_matmul`` of the nine
+   Table I workloads (bibd's n cut the same) on ``aespa_opt`` and on
+   ``aespa_equal4`` converts on the card exactly the compressed operands
+   of its schedule's partitions, every output the same bits as with the
+   plain conversion and within 1e-4 of float64.
 3. The single-kernel path: ``schedule_single_kernel(aespa_equal4())`` then
    ``execute_schedule`` on the card for the nine Table I workloads (and
    citeseer reduced so that the outer product's sparse body runs), each
@@ -223,7 +234,8 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    must be > 0; the counts are set to 0 before each phase and read after
    it) and
    the numbers of phase 2, whose launch shapes include the serving, fleet
-   and MoE routing ones.
+   and MoE routing ones; the conversion ``dense_to_ell`` (no TPU kernel
+   behind it) with its main-path launches and bibd_81_3's B by rows.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -254,10 +266,12 @@ from repro_torch.core.stream_exec import (  # noqa: E402
     StreamMesh,
     aggregate_timelines,
 )
-from repro_torch.core.workloads import BY_NAME, Workload, synthesize  # noqa: E402
+from repro_torch.core.workloads import (  # noqa: E402
+    BY_NAME, TABLE_I, Workload, synthesize)
 from repro_torch.formats import ell  # noqa: E402
 from repro_torch.formats.taxonomy import DataflowClass  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import ell_convert as ell_mod  # noqa: E402
 from repro_torch.kernels import gemm as gemm_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import spgemm_gustavson as gust_mod  # noqa: E402
@@ -412,6 +426,9 @@ DRYRUN_CELLS = (("3k", "whisper-base", "decode_32k", "multipod", 512),
 DRYRUN_TIMEOUT_S = 300
 #: The device phases 3h-3l run on (a CPU rehearsal sets it to "cpu").
 LM_DEVICE = "cuda"
+#: The conversion's checks (phase 2) hold bibd_81_3 with n cut from 43000
+#: to this, as the Table I queue fits one card on both designs.
+ELL_BIBD_N = 16000
 #: The kernel bodies that run each dataflow class's partitions.
 BODIES = {
     DataflowClass.GEMM: ("gemm",),
@@ -444,7 +461,7 @@ REPLACES = {
         "src/repro/kernels/spgemm_gustavson.py:47"),
 }
 COUNTERS = (spmm_mod.launches, outer_mod.launches, gemm_mod.launches,
-            inner_mod.launches, gust_mod.launches)
+            inner_mod.launches, gust_mod.launches, ell_mod.launches)
 #: The kernel each body launches, by the name its profile events carry:
 #: the time of the kernel alone, without its wrapper's pre-pass, is taken
 #: from a profile of the call.
@@ -1415,6 +1432,204 @@ def scan_checks():
         for name, f in variants:
             for group in (spmm_mod.REFERENCE_CHUNK, 1):
                 scan_check(name, f, BLOCK, group)
+
+
+def ell_fields_differ(got, want):
+    """The fields of two ELLs that differ (values by their bits)."""
+    return [f for f in ("vals", "ids", "lens") if not torch.equal(
+        bits(getattr(got, f)), bits(getattr(want, f)))] + (
+        ["shape"] if (got.shape, got.major_axis) != (want.shape,
+                                                     want.major_axis)
+        else [])
+
+
+def ell_case(label, x, major_axis, cap, reps=5):
+    """``dense_to_ell`` of ``x`` on the card against its plain version:
+    every field the same bits, the kernels' launch counted once; with
+    ``reps``, both times (CUDA events, a call over 100 ms once) beside
+    the bound (the slice read once, the ELL written once). Raises on a
+    difference; returns the row it logs."""
+    before = ell_mod.launches["dense_to_ell"]
+    got = ell.dense_to_ell(x, major_axis, cap)
+    work = x if major_axis == 0 else x.T
+    plan = ell_mod.ell_convert_plan(*work.shape, *work.stride(),
+                                    work.element_size(), work.data_ptr())
+    want = ell.dense_to_ell_plain(x, major_axis, cap)
+    bad = ell_fields_differ(got, want)
+    if ell_mod.launches["dense_to_ell"] != before + (work.shape[0] > 0):
+        bad.append("launch count")
+    elem = x.element_size()
+    moved = (x.numel() * elem + got.ids.numel() * (elem + 4)
+             + got.lens.numel() * 4)
+    row = {"case": label, "shape": list(x.shape),
+           "strides": list(x.stride()), "dtype": str(x.dtype)[6:],
+           "major_axis": major_axis, "cap": cap,
+           "nnz": int(want.lens.sum()), "plan": dataclasses.asdict(plan),
+           "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+    del got, want
+    if reps:
+        row["ms"] = time_ms(lambda: ell.dense_to_ell(x, major_axis, cap),
+                            reps)
+        row["plain_ms"] = time_ms(
+            lambda: ell.dense_to_ell_plain(x, major_axis, cap), reps)
+        row["gb_per_s"] = moved / row["ms"] / 1e6
+    log("ell " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"dense_to_ell ({label}): {bad} differ from "
+                             "the plain version")
+    torch.cuda.empty_cache()
+    return row
+
+
+def card_sparse(r, c, density, gen, dtype=torch.float32):
+    """An ``r x c`` standard normal matrix on the card, each element kept
+    with probability ``density``."""
+    x = torch.randn(r, c, device="cuda", generator=gen)
+    if density < 1.0:
+        x *= torch.rand(r, c, device="cuda", generator=gen) < density
+    return x.to(dtype)
+
+
+def ell_queue_launches(designs):
+    """One ``hetero_many_matmul`` of the nine Table I workloads (bibd_81_3's
+    n cut to :data:`ELL_BIBD_N`) under ``lpt`` on each ``(label, config)``
+    of ``designs``: the kernels convert exactly the compressed operands of
+    the schedule's partitions, and every output is the same bits as the
+    same queue's with the plain conversion, each within 1e-4 of float64.
+    Returns the two walls a design (host clock, ending in a
+    synchronize)."""
+    tasks = [dataclasses.replace(w, n=ELL_BIBD_N) if w.name == "bibd_81_3"
+             else w for w in TABLE_I]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    pairs = [(card_sparse(w.m, w.k, w.d_mk, gen),
+              card_sparse(w.k, w.n, w.d_kn, gen)) for w in tasks]
+    walls = {}
+    for label, config in designs:
+        def queue():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs, ms = hm.hetero_many_matmul(pairs, config, policy="lpt")
+            torch.cuda.synchronize()
+            return outs, ms, (time.perf_counter() - t0) * 1e3
+
+        queue()  # warm
+        before = ell_mod.launches["dense_to_ell"]
+        outs, ms, wall = queue()
+        got = ell_mod.launches["dense_to_ell"] - before
+        want = sum(len(hm._compressed_operands(pp.partition.cls,
+                                               pp.partition.mirror))
+                   for a in ms.assignments for pp in a.placed
+                   if not pp.partition.region.empty)
+        kernel_path = hm.dense_to_ell
+        hm.dense_to_ell = ell.dense_to_ell_plain
+        try:
+            queue()
+            plain_outs, _, plain_wall = queue()
+        finally:
+            hm.dense_to_ell = kernel_path
+        differ = [t.name for t, o, p in zip(tasks, outs, plain_outs)
+                  if not torch.equal(bits(o), bits(p))]
+        del plain_outs
+        rels = [check_product(f"ell queue {label} {t.name}", o, a, b)
+                for t, o, (a, b) in zip(tasks, outs, pairs)]
+        log(f"ell queue {label}: {got} conversions on the card ({want} "
+            f"compressed operands in the schedule), wall {wall:.3f} ms, "
+            f"with the plain conversion {plain_wall:.3f} ms, worst rel err "
+            f"{max(rels):.3e}")
+        if differ:
+            raise AssertionError(f"ell queue {label}: {differ} not the same "
+                                 "bits as with the plain conversion")
+        if got != want or not want:
+            raise AssertionError(f"ell queue {label}: {got} conversions on "
+                                 f"the card, {want} in the schedule")
+        walls[label] = (wall, plain_wall)
+        del outs
+        torch.cuda.empty_cache()
+    return walls
+
+
+def ell_convert_checks(designs=None):
+    """The conversion's kernels (``kernels/ell_convert.py``) against the
+    plain version, bit for bit, timed: bibd_81_3's three conversions with
+    n cut to :data:`ELL_BIBD_N` (B 85000 x 16000 by rows at cap 16000, A
+    3200 x 85000 by rows at cap 128 and by columns at its fullest column's
+    bucket), m3plates' B, speech's A and gnmt's B by columns; slices and a
+    view with neither stride 1, both axes, caps that truncate and caps
+    past the minor size, bfloat16, NaN and -0.0, no minor length, and
+    ``strict``; then :func:`ell_queue_launches` on ``designs`` (by default
+    ``aespa_opt`` and ``aespa_equal4``). Returns the row of bibd's B, the
+    largest conversion."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sparse = functools.partial(card_sparse, gen=gen)
+    w = BY_NAME["bibd_81_3"]
+    a = sparse(w.m, w.k, w.d_mk)
+    col_cap = ell.bucket_capacity(int((a != 0).sum(0).max()), max_cap=w.m)
+    ell_case("bibd A rows", a, 0, 128, reps=10)
+    ell_case("bibd A cols", a, 1, col_cap, reps=10)
+    ell_case("bibd A rows bf16", a.bfloat16(), 0, 128)
+    del a
+    b = sparse(w.k, ELL_BIBD_N, w.d_kn)
+    top = ell_case("bibd B rows", b, 0, ELL_BIBD_N, reps=3)
+    ell_case("bibd B rows truncated", b, 0, 5000, reps=0)
+    ell_case("bibd B slice rows", b[1000:61000, 3:15003], 0, 15000, reps=0)
+    del b
+    for label, name, operand, cap in (("m3plates B cols", "m3plates", 1,
+                                       11000),
+                                      ("speech A cols", "speech", 0, 512),
+                                      ("gnmt B cols", "gnmt", 1, 512)):
+        w = BY_NAME[name]
+        shape = ((w.m, w.k, w.d_mk), (w.k, w.n, w.d_kn))[operand]
+        ell_case(label, sparse(*shape), 1, cap, reps=10)
+    # Views, odd alignments, truncation, caps past the minor size.
+    x = sparse(1500, 2100, 0.2)
+    for dtype, axis in ((d, ax) for d in (torch.float32, torch.bfloat16)
+                        for ax in (0, 1)):
+        xd = x.to(dtype)
+        need = int((xd != 0).sum(1 - axis).max())
+        for label, view in (("slice", xd[7:1450, 5:2003]),
+                            ("aligned slice", xd[8:1496, 8:2096]),
+                            ("strided", xd[1::3, ::2]),
+                            ("whole", xd)):
+            for cap in (need, need // 2, view.shape[1 - axis] + 7):
+                ell_case(f"{label} axis {axis} {str(dtype)[6:]}", view,
+                         axis, cap, reps=0)
+    # Few long fibers (rows, and columns side by side); no fibers at all.
+    y = sparse(40, 300_001, 0.01)
+    for axis, view in ((0, y), (1, y.T.contiguous())):
+        ell_case(f"long fibers axis {axis}", view, axis, 3100, reps=0)
+    ell_case("no fibers", y[:0], 0, 8, reps=0)
+    # NaN kept, -0.0 dropped, fibers of nothing, no minor length.
+    z = sparse(300, 500, 0.1)
+    z[3, 10] = z[100, 0] = float("nan")
+    z[4, :] = -0.0
+    z[5, 17] = -0.0
+    for axis in (0, 1):
+        ell_case(f"nan and -0.0 axis {axis}", z, axis, 64, reps=0)
+        ell_case(f"no minor axis {axis}",
+                 z[:, :0] if axis == 0 else z[:0], axis, 8, reps=0)
+    # strict: the plain version's error, from the kernels' true counts.
+    need = int((z != 0).sum(1).max())
+    ok = ell.dense_to_ell(z, 0, need, strict=True)
+    if ell_fields_differ(ok, ell.dense_to_ell_plain(z, 0, need)):
+        raise AssertionError("dense_to_ell(strict=True) differs")
+    for fn in (ell.dense_to_ell, ell.dense_to_ell_plain):
+        try:
+            fn(z, 0, need - 1, strict=True)
+        except ValueError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"{fn.__name__}(strict=True) took a cap "
+                                 "below the fullest fiber")
+        log(f"ell strict {fn.__name__}: {msg}")
+    if f"holds {need} nonzeros but cap={need - 1}" not in msg:
+        raise AssertionError(f"dense_to_ell(strict=True): {msg}")
+    del x, y, z, ok
+    torch.cuda.empty_cache()
+    if designs is None:
+        designs = (("aespa_opt", dse.aespa_opt()),
+                   ("aespa_equal4", dse.aespa_equal4()))
+    ell_queue_launches(designs)
+    return top
 
 
 def gustavson_oracle(ap, bp):
@@ -3333,6 +3548,8 @@ def main() -> int:
     for case in edge_cases():
         case.check()
     scan_checks()
+    ell_top = ell_convert_checks((("aespa_opt", opt),
+                                  ("aespa_equal4", config)))
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 3: the single-kernel path --------------------------------
@@ -3475,7 +3692,7 @@ def main() -> int:
                 + stream_launches[k] + serve_launches[k] + fleet_launches[k]
                 + lm_launches[k] + family_launches[k] + train_launches[k]
                 + mesh_launches[k] + mesh_family_launches[k]
-                for k in REPLACES}
+                for k in (*REPLACES, "dense_to_ell")}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -3491,6 +3708,15 @@ def main() -> int:
             "library_ms": top["library_ms"], "case": top["case"],
             **({"kernel_only_ms": top["kernel_only_ms"]}
                if "kernel_only_ms" in top else {})})
+    # The conversion replaces no TPU kernel; its numbers are the largest
+    # conversion's (bibd_81_3's B by rows), bit-equal to the plain version.
+    kernels.append({
+        "name": "dense_to_ell", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ell_convert.cu",
+        "replaces": None, "launches": launches["dense_to_ell"],
+        "max_abs_err": 0.0, "ms": ell_top["ms"],
+        "plain_ms": ell_top["plain_ms"], "bound_ms": ell_top["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "case": ell_top["case"]})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,10 @@ fibers run along:
 * B in ``U_N C_K``  -> ``major_axis=1`` (column fibers, ids index K)
 * B in ``U_K C_N``  -> ``major_axis=0`` (row fibers, ids index N)
 
-Every function here is plain torch on whatever device its input lies on;
+Every function here is plain torch on whatever device its input lies on,
+except :func:`dense_to_ell`, which compresses a CUDA tensor with the
+hand-written kernels of ``repro_torch.kernels.ell_convert`` (the same bits
+as its plain version, :func:`dense_to_ell_plain`);
 :func:`ell_from_numpy`/:func:`ell_to_numpy` carry an ELL between this
 package and the JAX one as numpy arrays.
 """
@@ -82,44 +85,67 @@ def dense_to_ell(dense: torch.Tensor, major_axis: int, cap: int,
     :class:`ValueError` naming the worst fiber. ``strict`` forces one host
     synchronisation; the executor enforces the same contract with its one
     batched capacity fetch instead (``core/hetero_matmul.py``).
+
+    A CUDA tensor (float32 or bfloat16, any strides) is compressed by the
+    kernels of ``repro_torch.kernels.ell_convert``, or the call raises;
+    any other goes through :func:`dense_to_ell_plain`. Both give the same
+    bits.
     """
     assert dense.ndim == 2, dense.shape
     with TRACE.span("repro.convert", cat="queue", shape=tuple(dense.shape),
                     major_axis=major_axis, cap=cap):
-        work = dense if major_axis == 0 else dense.T
-        mask = work != 0
-        lens = mask.sum(dim=-1, dtype=torch.int32)
-        if strict:
-            worst = int(lens.max()) if lens.numel() else 0
-            if worst > cap:
-                raise ValueError(
-                    f"dense_to_ell(strict=True): a fiber holds {worst} "
-                    f"nonzeros but cap={cap} (major_axis={major_axis}, "
-                    f"shape={tuple(dense.shape)}); raise the capacity (see "
-                    "bucket_capacity) or drop strict if truncation is "
-                    "intended")
-        # A stable argsort of ~mask floats the nonzero coordinates (in
-        # ascending order) to the front of each fiber.
-        order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
-        width = min(cap, work.shape[-1])
-        take = order[:, :width]
-        within = (torch.arange(width, device=dense.device)[None, :]
-                  < torch.clamp(lens, max=width)[:, None])
-        ids = torch.where(within, take.to(torch.int32),
-                          torch.full_like(take, PAD_ID, dtype=torch.int32))
-        vals = torch.take_along_dim(work, take, dim=-1)
-        vals = torch.where(within, vals, torch.zeros_like(vals))
-        if width < cap:  # capacity exceeds minor size: pad out to static cap
-            pad = cap - width
-            ids = torch.nn.functional.pad(ids, (0, pad), value=PAD_ID)
-            vals = torch.nn.functional.pad(vals, (0, pad))
-        return EllMatrix(
-            vals=vals.contiguous(),
-            ids=ids.contiguous(),
-            lens=torch.clamp(lens, max=width),
-            shape=tuple(dense.shape),
-            major_axis=major_axis,
-        )
+        if dense.device.type == "cuda":
+            from repro_torch.kernels.ell_convert import dense_to_ell_cuda
+
+            return dense_to_ell_cuda(dense, major_axis, cap, strict)
+        return dense_to_ell_plain(dense, major_axis, cap, strict)
+
+
+def require_fits(worst: int, cap: int, major_axis: int, shape) -> None:
+    """``dense_to_ell(strict=True)``'s check: raise :class:`ValueError`
+    when the fullest fiber's ``worst`` nonzeros exceed ``cap``."""
+    if worst > cap:
+        raise ValueError(
+            f"dense_to_ell(strict=True): a fiber holds {worst} "
+            f"nonzeros but cap={cap} (major_axis={major_axis}, "
+            f"shape={tuple(shape)}); raise the capacity (see "
+            "bucket_capacity) or drop strict if truncation is "
+            "intended")
+
+
+def dense_to_ell_plain(dense: torch.Tensor, major_axis: int, cap: int,
+                       strict: bool = False) -> EllMatrix:
+    """Plain torch version of :func:`dense_to_ell`, on any device: a
+    stable argsort of each fiber's zero mask. Nonzero is ``x != 0``: NaN
+    is kept, -0.0 dropped."""
+    work = dense if major_axis == 0 else dense.T
+    mask = work != 0
+    lens = mask.sum(dim=-1, dtype=torch.int32)
+    if strict:
+        require_fits(int(lens.max()) if lens.numel() else 0, cap,
+                     major_axis, dense.shape)
+    # A stable argsort of ~mask floats the nonzero coordinates (in
+    # ascending order) to the front of each fiber.
+    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
+    width = min(cap, work.shape[-1])
+    take = order[:, :width]
+    within = (torch.arange(width, device=dense.device)[None, :]
+              < torch.clamp(lens, max=width)[:, None])
+    ids = torch.where(within, take.to(torch.int32),
+                      torch.full_like(take, PAD_ID, dtype=torch.int32))
+    vals = torch.take_along_dim(work, take, dim=-1)
+    vals = torch.where(within, vals, torch.zeros_like(vals))
+    if width < cap:  # capacity exceeds minor size: pad out to static cap
+        pad = cap - width
+        ids = torch.nn.functional.pad(ids, (0, pad), value=PAD_ID)
+        vals = torch.nn.functional.pad(vals, (0, pad))
+    return EllMatrix(
+        vals=vals.contiguous(),
+        ids=ids.contiguous(),
+        lens=torch.clamp(lens, max=width),
+        shape=tuple(dense.shape),
+        major_axis=major_axis,
+    )
 
 
 def ell_to_dense(e: EllMatrix) -> torch.Tensor:

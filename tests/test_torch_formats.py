@@ -342,3 +342,225 @@ def test_ell_onehot_expand_matches_jax(case):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     if case == "sorted":
         np.testing.assert_allclose(got.numpy(), d, rtol=1e-6, atol=1e-6)
+
+
+# ---- dense_to_ell's inputs that the CUDA kernels must match: the plain
+# path against JAX on each (the card holds the kernels to the plain path,
+# chip_smoke.py's ``ell_convert_checks``).
+def _edge_input(case, major_axis):
+    """``(numpy array for JAX, torch tensor for the port, cap)``: the same
+    values, the port's a view where the case is one."""
+    rng = np.random.default_rng(11)
+    if case == "slice":
+        full = sparse(rng, 30, 50, 0.3)
+        t = torch.from_numpy(full)[3:27, 5:44]          # non-contiguous view
+        x = np.ascontiguousarray(full[3:27, 5:44])
+    elif case == "strided":
+        full = sparse(rng, 30, 50, 0.3)
+        t = torch.from_numpy(full)[1::2, 2::3]          # neither stride 1
+        x = np.ascontiguousarray(full[1::2, 2::3])
+    elif case == "nan_negzero":
+        x = sparse(rng, 12, 20, 0.3)
+        x[0, 3] = x[5, 0] = np.nan
+        x[1, 1] = x[7, 4] = -0.0
+        x[2, :] = -0.0                                  # a fiber of -0.0 only
+        t = torch.from_numpy(x.copy())
+    elif case == "zero_fibers":
+        x = np.zeros((0, 9) if major_axis == 0 else (9, 0), np.float32)
+        t = torch.from_numpy(x.copy())
+    elif case == "zero_minor":
+        x = np.zeros((9, 0) if major_axis == 0 else (0, 9), np.float32)
+        t = torch.from_numpy(x.copy())
+    else:
+        raise ValueError(case)
+    need = fiber_max(x, major_axis) if x.size else 0
+    return x, t, max(need, 1)
+
+
+@pytest.mark.parametrize("case", ["slice", "strided", "nan_negzero",
+                                  "zero_fibers", "zero_minor"])
+@pytest.mark.parametrize("major_axis", [0, 1])
+def test_dense_to_ell_edge_inputs_match_jax(case, major_axis):
+    """Views (a slice, and one with neither stride 1, transposed for
+    ``major_axis=1``), NaN kept and -0.0 dropped, no fibers and fibers of
+    no length: ids, lens and the values' bits equal JAX's."""
+    x, t, cap = _edge_input(case, major_axis)
+    j = jax_dense_to_ell(jnp.asarray(x), major_axis, cap)
+    e = tell.dense_to_ell(t, major_axis, cap)
+    assert_same_ell(j, e)
+    np.testing.assert_array_equal(
+        e.vals.numpy().view(np.uint32),
+        np.asarray(j.vals, np.float32).view(np.uint32))
+    assert e.vals.shape == (e.n_fibers, cap)
+    if case == "nan_negzero":   # row 2 holds -0.0 alone
+        assert (int(e.lens[2]) == 0 if major_axis == 0
+                else not bool((e.ids == 2).any()))
+        assert bool(torch.isnan(e.vals).any())
+
+
+@pytest.mark.parametrize("major_axis", [0, 1])
+@pytest.mark.parametrize("cap_mode", ["exact", "truncate", "wide"])
+def test_dense_to_ell_bfloat16_matches_jax(major_axis, cap_mode):
+    """bfloat16 values (the kernels' 2-byte path) keep their bits."""
+    rng = np.random.default_rng(12)
+    x = sparse(rng, 21, 34, 0.3)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    tb = torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16)
+    need = max(fiber_max(x, major_axis), 1)
+    minor = x.shape[1 - major_axis]
+    cap = {"exact": need, "truncate": max(need // 2, 1),
+           "wide": minor + 5}[cap_mode]
+    j = jax_dense_to_ell(xb, major_axis, cap)
+    e = tell.dense_to_ell(tb, major_axis, cap)
+    assert e.vals.dtype == torch.bfloat16
+    assert_same_ell(j, e)
+
+
+def test_dense_to_ell_on_the_cpu_launches_no_kernel():
+    """A CPU tensor takes the plain body: the kernels' count stays."""
+    from repro_torch.kernels import ell_convert
+
+    before = ell_convert.launches["dense_to_ell"]
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(sparse(rng, 16, 24, 0.2))
+    for axis in (0, 1):
+        e = tell.dense_to_ell(x, axis, 8)
+        p = tell.dense_to_ell_plain(x, axis, 8)
+        assert all(torch.equal(getattr(e, f), getattr(p, f))
+                   for f in ("vals", "ids", "lens"))
+    assert ell_convert.launches["dense_to_ell"] == before
+
+
+# ---- the CUDA kernels' walk (csrc/ell_convert.cu) in Python, step for
+# step: lanes' packs, ballots and popcounts, the row body's staging, the
+# column body's transposed tile and the padding.
+def _bits(t):
+    """A torch tensor's elements as unsigned bits (numpy), any strides."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.view(torch.int32).numpy().view(np.uint32)
+
+
+def _nonzero(b):
+    sign = np.array(1 << (8 * b.dtype.itemsize - 1), b.dtype)
+    return (b & ~sign) != 0
+
+
+def _exclusive(z):
+    return np.cumsum(z) - z
+
+
+def walk_ell_convert(t, major_axis, cap, plan):
+    """``(vals bits, ids, lens, worst)`` as the kernels write them under
+    ``plan``; slots they never write hold garbage, as ``torch.empty``."""
+    from repro_torch.kernels import ell_convert as ec
+
+    work = _bits(t if major_axis == 0 else t.T)
+    F, L = work.shape
+    width = min(cap, L)
+    vals = np.full((F, cap), 0x5A5A, work.dtype)
+    ids = np.full((F, cap), -7, np.int32)
+    lens = np.full(F, -7, np.int32)
+    lanes = np.arange(32)
+
+    def rows(f):
+        G = plan.vec_bytes // work.dtype.itemsize
+        run = 0
+        for jb in range(0, L, ec.EC_UNROLL * 32 * G):
+            for u in range(ec.EC_UNROLL):
+                j = jb + (u * 32 + lanes) * G
+                e = np.zeros((32, G), work.dtype)
+                ok = j < L
+                e[ok] = work[f, j[ok, None] + np.arange(G)]
+                z = _nonzero(e)
+                before = sum(_exclusive(z[:, i].astype(int))
+                             for i in range(G))
+                total = int(z.sum())
+                if total and run < width:
+                    sv = np.zeros(32 * G, work.dtype)
+                    si = np.zeros(32 * G, np.int32)
+                    for lane in range(32):
+                        k = before[lane]
+                        for i in range(G):
+                            if z[lane, i]:
+                                sv[k], si[k] = e[lane, i], j[lane] + i
+                                k += 1
+                    n = min(total, width - run)
+                    vals[f, run:run + n], ids[f, run:run + n] = sv[:n], si[:n]
+                run += total
+        return run
+
+    def cols(g):
+        f0 = 32 * g
+        runs = [0] * min(32, F - f0)
+        for jb in range(0, L, ec.EC_ROWS):
+            tile = np.zeros((ec.EC_ROWS, 32), work.dtype)
+            for c in range(len(runs)):
+                r1 = min(ec.EC_ROWS, L - jb)
+                tile[:r1, c] = work[f0 + c, jb:jb + r1]
+            for c in range(len(runs)):
+                for h in range(ec.EC_ROWS // 32):
+                    bits = tile[h * 32 + lanes, c]
+                    z = _nonzero(bits)
+                    slot = runs[c] + _exclusive(z.astype(int))
+                    keep = z & (slot < width)
+                    vals[f0 + c, slot[keep]] = bits[keep]
+                    ids[f0 + c, slot[keep]] = jb + h * 32 + lanes[keep]
+                    runs[c] += int(z.sum())
+        return runs
+
+    if plan.layout == ec.ROWS:
+        totals = [rows(f) for f in range(F)]
+    else:
+        totals = [r for g in range(-(-F // 32)) for r in cols(g)]
+    for f in range(F):                              # finish_fiber
+        n = min(totals[f], width)
+        lens[f] = n
+        vals[f, n:] = 0
+        ids[f, n:] = tell.PAD_ID
+    return vals, ids, lens, max(totals, default=0)
+
+
+#: Views of a (70, 704) array: (major_axis, view, body, elements a pack
+#: for float32 and for bfloat16). Rows of a slice aligned to 16 bytes, of
+#: one aligned to 4 or 2, columns of a slice, and a view with neither
+#: stride 1.
+WALK_VIEWS = {
+    "rows": (0, lambda x: x[2:69, 8:680], "ROWS", (4, 8)),
+    "rows_unaligned": (0, lambda x: x[2:69, 5:674], "ROWS", (1, 1)),
+    "cols": (1, lambda x: x[2:69, 8:680], "COLS", (1, 1)),
+    "strided": (0, lambda x: x[1::2, ::3], "ROWS", (1, 1)),
+}
+
+
+@pytest.mark.parametrize("view_case", list(WALK_VIEWS))
+@pytest.mark.parametrize("cap_mode", ["exact", "truncate", "wide"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_walk_matches_plain(view_case, cap_mode, dtype):
+    """The kernels' walk under the plan the wrapper makes (rows of a slice
+    in packs or one element at a time, columns of one, or a view with
+    neither stride 1) writes the plain version's bits, and its worst count
+    is the fullest fiber's."""
+    from repro_torch.kernels import ell_convert as ec
+
+    major_axis, cut, body, packs = WALK_VIEWS[view_case]
+    rng = np.random.default_rng(14)
+    full = torch.from_numpy(sparse(rng, 70, 704, 0.2)).to(dtype)
+    full[5, 7:300] = 0.0
+    full[9, :] = torch.randn(704).to(dtype)            # a dense row
+    view = cut(full)
+    work = view if major_axis == 0 else view.T
+    need = int((work != 0).sum(1).max())
+    cap = {"exact": need, "truncate": need // 3,
+           "wide": work.shape[1] + 3}[cap_mode]
+    plan = ec.ell_convert_plan(*work.shape, *work.stride(),
+                               work.element_size(), work.data_ptr())
+    assert plan.layout == getattr(ec, body)
+    assert plan.vec_bytes == work.element_size() * packs[
+        dtype == torch.bfloat16]
+    vals, ids, lens, worst = walk_ell_convert(view, major_axis, cap, plan)
+    want = tell.dense_to_ell_plain(view, major_axis, cap)
+    np.testing.assert_array_equal(vals, _bits(want.vals))
+    np.testing.assert_array_equal(ids, want.ids.numpy())
+    np.testing.assert_array_equal(lens, want.lens.numpy())
+    assert worst == need

@@ -4,9 +4,10 @@ bodies), row merge (the Gustavson sparse body) and dense GEMM.
 Pure functions of shapes (``spmm.spmm_sparse_plan``,
 ``spgemm_inner.inner_sparse_plan``, ``spgemm_gustavson.
 gustavson_sparse_grid``, ``gemm.gemm_plan``, ``_build.row_granule``,
-``spgemm_inner.fiber_vec``): what each CUDA launch covers, checked on the
-CPU against the limits the kernels rely on. The kernels themselves run
-only on the card (``chip_smoke.py``).
+``spgemm_inner.fiber_vec``, ``ell_convert.ell_convert_plan``): what
+each CUDA launch covers, checked on the CPU against the limits the
+kernels rely on. The kernels themselves run only on the card
+(``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.formats import ell as tell
 from repro_torch.kernels import _build
+from repro_torch.kernels import ell_convert as tec
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import spgemm_gustavson as tgust
 from repro_torch.kernels import spgemm_inner as tinner
@@ -329,3 +331,53 @@ def test_fiber_vec(cap, offset, dtype, vec):
     e = tell.EllMatrix(vals.view(n, cap), ids.view(n, cap),
                        torch.zeros(n, dtype=torch.int32), (cap, n), 1)
     assert tinner.fiber_vec(e) == vec
+
+
+#: (fibers, length, fiber stride, minor stride, element bytes, address) of
+#: conversions: the Table I queue's largest (bibd_81_3's B by rows, its A
+#: by rows and by columns, m3plates' B and speech's A by columns, gnmt's
+#: B by columns) and small, ragged, strided and empty ones.
+ELL_SHAPES = [
+    (85000, 16000, 16000, 1, 4, 0), (3200, 85000, 85000, 1, 4, 0),
+    (85000, 3200, 1, 85000, 4, 0), (5500, 11000, 1, 5500, 4, 0),
+    (2600, 7700, 1, 2600, 4, 0), (36000, 1000, 1, 36000, 4, 0),
+    (3200, 85000, 85000, 1, 2, 0), (7, 130, 130, 1, 2, 2),
+    (1, 1_000_000, 1, 1, 4, 4), (1, 1_000_000, 0, 7, 2, 0),
+    (40, 300_001, 1, 40, 4, 0), (9, 0, 0, 1, 4, 0), (1, 1, 1, 1, 4, 0),
+    (50, 33, 66, 3, 4, 8), (333, 5000, 5004, 1, 4, 8),
+]
+
+
+@pytest.mark.parametrize("f,length,s_f,s_m,elem,ptr", ELL_SHAPES)
+def test_ell_convert_plan_covers(f, length, s_f, s_m, elem, ptr):
+    """Every plan of the conversion: the column body only for fibers side
+    by side; a pack only where every fiber start and length is aligned to
+    it; the grid within CUDA's limits."""
+    plan = tec.ell_convert_plan(f, length, s_f, s_m, elem, ptr)
+    if plan.layout == tec.COLS:
+        assert s_f == 1 and s_m != 1 and f > 1
+        assert -(-f // 32) <= GRID_X_MAX
+    else:
+        assert -(-f // tec.EC_WARPS) <= GRID_X_MAX
+    vec = plan.vec_bytes
+    assert vec % elem == 0 and vec <= 16
+    if vec > elem:
+        assert s_m == 1 and ptr % vec == 0 and length * elem % vec == 0
+        assert f == 1 or s_f * elem % vec == 0
+
+
+@pytest.mark.parametrize("f,length,s_f,s_m,elem,plan", [
+    (85000, 16000, 16000, 1, 4, (tec.ROWS, 16)),   # bibd B rows
+    (3200, 85000, 85000, 1, 4, (tec.ROWS, 16)),    # bibd A rows
+    (85000, 3200, 1, 85000, 4, (tec.COLS, 4)),     # bibd A cols
+    (36000, 1000, 1, 36000, 4, (tec.COLS, 4)),     # gnmt B cols
+    (5500, 11000, 1, 5500, 4, (tec.COLS, 4)),      # m3plates B
+    (2600, 7700, 1, 2600, 4, (tec.COLS, 4)),       # speech A
+    (40, 300_001, 300_001, 1, 4, (tec.ROWS, 4)),
+])
+def test_ell_convert_plan_main_path(f, length, s_f, s_m, elem, plan):
+    """The plans of the Table I queue's conversions: 16-byte packs along
+    bibd's rows, the column body for every operand compressed by
+    columns, and 4-byte loads where an odd row length breaks the pack."""
+    got = tec.ell_convert_plan(f, length, s_f, s_m, elem, 0)
+    assert (got.layout, got.vec_bytes) == plan
