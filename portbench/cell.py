@@ -2,12 +2,14 @@
 (``trace=True``), then the check of a seeded sample of the window's
 outputs against the plain reference. Returns the result line's object.
 
-The window is a closed loop over whole units (a queue): each is
-timed on the host clock from its hand-over to its outputs synchronised,
-and the window runs until ``seconds`` have passed, so no unit is cut.
+The window is a closed loop over whole units (a queue, a decode step):
+each is timed on the host clock from its hand-over to its outputs
+synchronised, and the window runs until ``seconds`` have passed, so no
+unit is cut.
 Consecutive units alternate operand sets. A sample of ``check_units``
 units, drawn from the seed over every unit of the window (a reservoir),
-keeps its outputs for the check."""
+keeps its outputs for the check; ``judged(outputs, handed, readings)``,
+where given, sees that sample as the check judged it."""
 from __future__ import annotations
 
 import math
@@ -32,6 +34,7 @@ class Record:
     window_s: float = 0.0
     peak_bytes: List[int] = field(default_factory=list)
     bound_s: float = 0.0        # a unit's bound, averaged over the window
+    flops_s: float = 0.0        # its operations at the peak, averaged alike
     trace: Optional[devtrace.Trace] = None
     trace_bound_s: float = 0.0  # a unit's bound, averaged over the trace
 
@@ -46,7 +49,8 @@ def _number(x: float):
 
 def run(cell: str, seed: int, seconds: float, trace: bool,
         device="cuda", root=ROOT, t_start: Optional[float] = None,
-        log: Callable[[str], None] = _stderr) -> Dict:
+        log: Callable[[str], None] = _stderr,
+        judged: Optional[Callable] = None) -> Dict:
     from repro_torch.core import costmodel
 
     t_start = time.perf_counter() if t_start is None else t_start
@@ -54,7 +58,8 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
     spec = bench.cell(cell)
     config = bench.config(spec["config"])
     mix = bench.traffic(spec["traffic"])
-    accel = costmodel.config_from_json(config["accelerator"])
+    accel = (costmodel.config_from_json(config["accelerator"])
+             if "accelerator" in config else None)
     reference = bench.reference(config["reference"])
     limits = bench.reference_limits(config["reference"])
     dev = torch.device(device)
@@ -113,6 +118,8 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
     units = i
     rec.bound_s = sum(traffic.bound_s(u % n_sets)
                       for u in range(units)) / units
+    rec.flops_s = sum(traffic.flops_s(u % n_sets)
+                      for u in range(units)) / units
     ms = sorted(1e3 * x for x in rec.unit_s)
     log(f"portbench {cell}: window {rec.window_s:.3f} s, {units} "
         f"{traffic.unit}s of {ms[0]:.3f} to {ms[-1]:.3f} ms, median "
@@ -148,14 +155,17 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
-    # ---- the check, once the memory peak is read; the entry keeps no
-    # state across queues, so only the sample's outputs stay
+    # ---- the check, once the memory peak is read and the program's
+    # state is dropped, so only the sample's outputs stay
+    traffic.release()
     outputs, handed = [], []
     for _, s, outs in sorted(sample, key=lambda t: t[0]):
         outputs += outs
         handed += traffic.operands(s)
     del sample
     readings, per_task = reference.readings(outputs, handed, dev)
+    if judged is not None:      # the calibration's hook
+        judged(outputs, handed, readings)
     del outputs
 
     def sound(k, x):

@@ -72,3 +72,11 @@ class Traffic:
 
     def bound_s(self, s: int) -> float:
         return work.bound_s(self.works[s])
+
+    def flops_s(self, s: int) -> float:
+        """Set ``s``'s operations alone at the compute peak."""
+        return sum(w.flops / work.PEAK_FLOPS[w.dtype] for w in self.works[s])
+
+    def release(self) -> None:
+        """Drop the program's state before the check; a queue keeps
+        none."""

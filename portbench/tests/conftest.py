@@ -26,6 +26,11 @@ def pytest_configure(config):
 
 
 @pytest.fixture
+def small_model():
+    return dict(SMALL_MODEL)
+
+
+@pytest.fixture
 def card():
     import torch
 
@@ -34,10 +39,23 @@ def card():
     return torch.device("cuda")
 
 
+#: A model configuration's sizes in the test copy: the port's
+#: ``olmoe_1b_7b.reduced()`` in float32, dropless (capacity factor E/k).
+SMALL_MODEL = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 4,
+               "d_head": 16, "d_ff": 64, "vocab_size": 512, "n_experts": 8,
+               "experts_per_token": 2, "capacity_factor": 4.0,
+               "dtype": "float32"}
+
+
 def shrink(d: dict) -> None:
-    """Cut a configuration's workloads to CPU size in place: every dim to
-    a tenth (a twentieth above 5000), at least 8; densities at least 2%
-    so each task has nonzeros."""
+    """Cut a configuration to CPU size in place. A model: the sizes of
+    ``SMALL_MODEL``. An accelerator's workloads: every dim to a tenth (a
+    twentieth above 5000), at least 8; densities at least 2% so each task
+    has nonzeros."""
+    if "model" in d:
+        d["model"].update(SMALL_MODEL)
+        d["cache_dtype"] = "float32"
+        return
     for name in d["suite"]:
         w = d[name]
         for key in "mkn":
@@ -46,11 +64,18 @@ def shrink(d: dict) -> None:
         w["d_kn"] = max(w["d_kn"], 0.02)
 
 
+def shrink_sessions(m: dict) -> None:
+    """A decode mix at CPU size: its first 8 sessions, their starts cut
+    by 64 (at least 1), a cycle of 8 steps, slots of 48 positions."""
+    m["positions"] = [max(1, p // 64) for p in m["positions"][:8]]
+    m.update(cycle=8, s_max=48)
+
+
 @pytest.fixture
 def small_root(tmp_path):
     """A copy of the benchmark (BENCHMARK.json and portbench/) whose
     configurations are cut to CPU size, each mix checking one unit and
-    tracing one unit of each operand set."""
+    tracing one unit of each operand set (a decode mix has one)."""
     root = tmp_path / "checkout"
     shutil.copytree(ROOT / "portbench", root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -63,6 +88,9 @@ def small_root(tmp_path):
         p.write_text(json.dumps(d))
     for p in (root / "portbench" / "traffic").glob("*.json"):
         m = json.loads(p.read_text())
-        m["check_units"], m["profile_units"] = 1, m["operand_sets"]
+        m["check_units"] = 1
+        m["profile_units"] = m.get("operand_sets", 1)
+        if m["kind"] == "decode":
+            shrink_sessions(m)
         p.write_text(json.dumps(m))
     return root

@@ -41,6 +41,9 @@ def test_config_files(name):
     assert entry["file"].startswith("portbench/configs/")
     d = BENCH.config(name)
     assert d["name"] == name and d["reduced"] == entry["reduced"]
+    if "model" in d:
+        model_config_file(d)
+        return
     for key in entry["reduced"]:
         assert key in d and key in d["published"]
     from repro_torch.core.workloads import TABLE_I
@@ -64,13 +67,48 @@ def test_config_files(name):
     assert costmodel.config_to_json(cfg) == d["accelerator"]
 
 
+def model_config_file(d):
+    """A model configuration: the port's configuration of its name with
+    the file's capacity factor and head, every published size as the file
+    states it, and nothing cut."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ModelConfig
+
+    model = d["model"]
+    port = get_config(d["port_config"])
+    assert ModelConfig(**model) == dataclasses.replace(
+        port, capacity_factor=model["capacity_factor"],
+        tie_embeddings=model["tie_embeddings"])
+    pub = d["published"]
+    assert model["tie_embeddings"] == pub["tie_word_embeddings"]
+    names = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
+             "num_attention_heads": "n_heads",
+             "num_key_value_heads": "n_kv_heads",
+             "intermediate_size": "d_ff", "vocab_size": "vocab_size",
+             "num_experts": "n_experts",
+             "num_experts_per_tok": "experts_per_token",
+             "rope_theta": "rope_theta"}
+    assert {k: pub[k] for k in names} == {k: model[v]
+                                         for k, v in names.items()}
+    assert model["d_head"] * model["n_heads"] == pub["hidden_size"]
+    # Dropless: capacity int(S * k * cf / E) equals the sequence.
+    assert model["capacity_factor"] == (model["n_experts"]
+                                        / model["experts_per_token"])
+    assert d["reduced"] == [] and d["departures"]
+
+
+ACCELERATORS = [n for n in CONFIGS if "accelerator" in BENCH.config(n)]
+
+
 def test_frozen_designs_and_cut():
     """The clusters and the one cut as the paper's designs give them."""
     pes = {n: [c["pes"] for c in BENCH.config(n)["accelerator"]["clusters"]]
-           for n in CONFIGS}
+           for n in ACCELERATORS}
     assert pes == {"aespa_opt": [6479, 1272, 1871, 1040],
                    "aespa_equal4": [4320, 2544, 1248, 3008]}
-    for n in CONFIGS:
+    for n in ACCELERATORS:
         d = BENCH.config(n)
         bibd = d["bibd_81_3"]
         # Only n is cut; m and k keep their published sizes.
@@ -105,10 +143,16 @@ def test_cells_resolve(cell):
 @pytest.mark.parametrize("mix_name", sorted(
     p.stem for p in (ROOT / "portbench" / "traffic").glob("*.json")))
 def test_traffic_files(mix_name):
+    """Each mix's traffic as a cell of it builds it: a queue alternates
+    operand sets, a decode batch keeps one cache; the traced units cover
+    every set."""
     m = BENCH.traffic(mix_name)
     assert (ROOT / "portbench" / "traffic" / f"{m['kind']}.py").exists()
-    assert m["operand_sets"] >= 2
-    assert m["profile_units"] % m["operand_sets"] == 0
+    cell = next(w for w in SPEC["workloads"] if w["traffic"] == mix_name)
+    config = BENCH.config(cell["config"])
+    traffic = BENCH.generator(m["kind"]).Traffic(m, config, None, "cpu")
+    assert traffic.n_sets >= (2 if m["kind"] == "queue" else 1)
+    assert m["profile_units"] % traffic.n_sets == 0
     assert m["check_units"] >= 1
 
 
@@ -154,6 +198,30 @@ def test_every_cell_reports_setup_and_a_layer():
         assert "setup_s" in e2e and len(e2e) >= 2
         layers = BENCH.metrics(cell, True)
         assert layers and all(m["moves"] in e2e for m in layers)
+
+
+def test_each_cell_gets_its_metrics():
+    """The model cell its own end-to-end and per-layer metrics and the
+    shared two; the AESPA cells the sets they had before it came."""
+    table = {"queue_ms", "queue_p95_ms", "peak_mem_gib", "setup_s"}
+    table_layers = {"kernel_ms", "torch_ops_ms", "device_idle_pct",
+                    "device_roofline_pct", "queue_roofline_pct", "sched_ms",
+                    "sync_ms", "host_syncs", "host_exec_ms"}
+    want = {
+        "aespa_opt.tableI_lpt": (table, table_layers),
+        "aespa_equal4.tableI_lpt": (table, table_layers),
+        "aespa_equal4.small_lpt": (
+            {"queue_ms.small", "queue_p95_ms.small", "peak_mem_gib",
+             "setup_s"},
+            {f"{m}.small" for m in table_layers}),
+        "olmoe_1b_7b.azure_conv": (
+            {"queue_ms.decode", "peak_mem_gib", "setup_s"},
+            {"mfu.decode", "queue_roofline_pct.decode",
+             "device_idle_pct.decode", "device_roofline_pct.decode"}),
+    }
+    for cell, (e2e, layers) in want.items():
+        assert {m["name"] for m in BENCH.metrics(cell, False)} == e2e, cell
+        assert {m["name"] for m in BENCH.metrics(cell, True)} == layers, cell
 
 
 def test_split_metrics_share_their_reader():

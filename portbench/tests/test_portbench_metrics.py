@@ -33,7 +33,7 @@ def record(**kw) -> Record:
     rec = Record(setup_s=12.5,
                  unit_s=[0.060, 0.070, 0.065, 0.080, 0.061],
                  window_s=0.336, peak_bytes=[3 << 30, 4 << 30, 2 << 30],
-                 bound_s=0.0008, trace=canned_trace(),
+                 bound_s=0.0008, flops_s=0.0002, trace=canned_trace(),
                  trace_bound_s=0.00001)
     for k, v in kw.items():
         setattr(rec, k, v)
@@ -83,6 +83,21 @@ def test_per_layer_readers():
         100 * 0.00001 * 2 / 45e-6)
     assert read("queue_roofline_pct", rec) == pytest.approx(
         100 * 0.0008 / 0.0672)
+
+
+def test_decode_readers():
+    """The model cell's metrics read the record as the queue's do, a step
+    being a unit; ``mfu`` reads the operations alone at the peak."""
+    rec = record()
+    assert read("queue_ms.decode", rec) == pytest.approx(336 / 5)
+    assert read("queue_roofline_pct.decode", rec) == pytest.approx(
+        100 * 0.0008 / 0.0672)
+    assert read("mfu.decode", rec) == pytest.approx(100 * 0.0002 / 0.0672)
+    assert read("mfu.decode", record(trace=None)) is None
+    assert read("mfu.decode", record(flops_s=0.0)) is None
+    assert read("device_idle_pct.decode", rec) == pytest.approx(55.0)
+    assert read("device_roofline_pct.decode", rec) == pytest.approx(
+        100 * 0.00001 * 2 / 45e-6)
 
 
 def test_readers_return_nothing_without_data():
