@@ -1,5 +1,7 @@
 """Assigned architecture configs (one module per arch) + registry — the
-port's copies of ``repro.configs``, unchanged but for the import.
+port's copies of ``repro.configs``, unchanged but for the import, and the
+port's own architectures (:data:`PORT_ARCHS`), which the JAX package does
+not run.
 
 Every module exposes ``CONFIG`` (the exact published hyper-parameters) and
 ``reduced()`` (a same-family CPU-smoke-test configuration).
@@ -22,7 +24,11 @@ ARCHS = (
     "mamba2_370m",
     "recurrentgemma_2b",
     "internvl2_1b",
+    "deepseek_v2_lite",
 )
+
+#: The architectures of :data:`ARCHS` that only the port runs.
+PORT_ARCHS = ("deepseek_v2_lite",)
 
 #: CLI ids (``--arch <id>``) -> module names.
 ALIASES: Dict[str, str] = {
@@ -36,6 +42,7 @@ ALIASES: Dict[str, str] = {
     "mamba2-370m": "mamba2_370m",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "internvl2-1b": "internvl2_1b",
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
 

@@ -74,6 +74,9 @@ META = torch.device("meta")
 
 def skip_reason(model: Model, shape: ShapeSpec) -> Optional[str]:
     cfg = model.cfg
+    if cfg.mla or cfg.n_shared_experts or cfg.first_dense_layers:
+        return ("latent attention (MLA), shared experts and leading dense "
+                "layers run unsharded: no mesh path")
     if shape.name == "long_500k" and not cfg.supports_long_context:
         return ("pure full-attention arch: long_500k needs sub-quadratic "
                 "sequence mixing (DESIGN.md §5)")

@@ -28,7 +28,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.common.pytree import tree_map
-from repro_torch.configs import all_archs, get_config, get_reduced
+from repro_torch.configs import (ALIASES, PORT_ARCHS, all_archs,
+                                 get_config, get_reduced)
 from repro_torch.data import DataConfig, TokenDataset
 from repro_torch.launch.mesh import (
     axis_sizes,
@@ -63,7 +64,10 @@ def parse_mesh(spec: str) -> tuple:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=all_archs())
+    # Every arch with a mesh path: the port's own (PORT_ARCHS) have none.
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=[a for a in all_archs()
+                             if ALIASES[a] not in PORT_ARCHS])
     ap.add_argument("--preset", default="reduced", choices=["reduced", "full"])
     ap.add_argument("--mesh", default="1x1")
     ap.add_argument("--steps", type=int, default=20)

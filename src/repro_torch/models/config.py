@@ -4,8 +4,11 @@
 One frozen dataclass describes dense / MoE / SSM / hybrid / enc-dec / VLM
 LMs; per-arch modules in ``repro_torch/configs`` instantiate it with the
 exact published hyper-parameters plus a ``reduced()`` variant for CPU smoke
-tests. The one difference: :attr:`ModelConfig.param_dtype` is a torch
-dtype.
+tests. Two differences: :attr:`ModelConfig.param_dtype` is a torch
+dtype, and the port's own fields (latent attention, YaRN, shared experts,
+the router's scoring, leading dense layers; :data:`PORT_FIELDS`) describe
+DeepSeek-V2's blocks, which the JAX package does not run. Their defaults
+leave every one of the JAX package's configurations as it is.
 """
 from __future__ import annotations
 
@@ -53,6 +56,25 @@ class ModelConfig:
     n_experts: int = 0
     experts_per_token: int = 0
     capacity_factor: float = 1.25
+    # Shared experts: one SwiGLU of width n_shared_experts * d_ff on every
+    # token, added to the routed sum.
+    n_shared_experts: int = 0
+    # "topk_softmax": a softmax over the top k logits (they sum to 1);
+    # "softmax": a softmax over all E, the top k kept unrenormalised.
+    router_scoring: str = "topk_softmax"
+    # Leading layers whose FFN is a dense SwiGLU of width d_ff_dense.
+    first_dense_layers: int = 0
+    d_ff_dense: int = 0
+
+    # --- latent attention (MLA, DeepSeek-V2; layer kind "mla") -------------
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN (DeepSeek-V2's rope_scaling, its other keys as published:
+    # models/mla.py); yarn_factor 0 => plain RoPE.
+    yarn_factor: float = 0.0
+    yarn_original_len: int = 0
 
     # --- SSM (mamba2 / SSD) --------------------------------------------------
     ssm_state: int = 0
@@ -85,6 +107,12 @@ class ModelConfig:
     act: str = "silu"                         # silu (swiglu) | gelu
     aespa: AespaConfig = AespaConfig()
 
+    def __post_init__(self):
+        # A pattern given as a list (a JSON file's) is kept as a tuple.
+        if self.layer_pattern is not None:
+            object.__setattr__(self, "layer_pattern",
+                               tuple(self.layer_pattern))
+
     # -------------------------------------------------------------- helpers
     @property
     def param_dtype(self) -> torch.dtype:
@@ -116,20 +144,36 @@ class ModelConfig:
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """Expanded per-layer kind list of length n_layers."""
+        return self._kinds(self.n_layers)
+
+    def _kinds(self, n: int) -> Tuple[str, ...]:
         if self.layer_pattern is None:
-            return ("global",) * self.n_layers
+            return ("global",) * n
         period = self.layer_pattern
-        reps = -(-self.n_layers // len(period))
-        return (period * reps)[: self.n_layers]
+        reps = -(-n // len(period))
+        return (period * reps)[:n]
+
+    def lead_kinds(self) -> Tuple[str, ...]:
+        """The kinds of the ``first_dense_layers`` leading layers, which
+        stand before the scanned periods."""
+        return self.layer_kinds()[:self.first_dense_layers]
 
     def pattern_split(self) -> Tuple[int, Tuple[str, ...], Tuple[str, ...]]:
-        """(n_periods, period, tail) for super-block scanning."""
+        """(n_periods, period, tail) for super-block scanning, over the
+        layers after the leading dense ones (the pattern starts again
+        there)."""
+        n = self.n_layers - self.first_dense_layers
         if self.layer_pattern is None:
-            return self.n_layers, ("global",), ()
+            return n, ("global",), ()
         period = self.layer_pattern
-        n_periods = self.n_layers // len(period)
-        tail = self.layer_kinds()[n_periods * len(period):]
+        n_periods = n // len(period)
+        tail = self._kinds(n)[n_periods * len(period):]
         return n_periods, period, tail
+
+    @property
+    def mla(self) -> bool:
+        """Latent attention in some layer."""
+        return "mla" in self.layer_kinds()
 
     def validate(self) -> None:
         assert self.n_heads % max(self.n_kv_heads, 1) == 0, "GQA grouping"
@@ -142,6 +186,13 @@ class ModelConfig:
             assert self.n_enc_layers > 0
         if self.frontend is not None:
             assert self.n_frontend_tokens > 0
+        if self.mla:
+            assert min(self.kv_lora_rank, self.qk_nope_head_dim,
+                       self.qk_rope_head_dim, self.v_head_dim) > 0
+        if self.first_dense_layers:
+            assert 0 < self.first_dense_layers < self.n_layers
+            assert self.d_ff_dense > 0
+        assert self.router_scoring in ("topk_softmax", "softmax")
 
     def param_count(self) -> int:
         """Approximate trainable parameter count (docs/roofline 6ND)."""
@@ -155,13 +206,18 @@ class ModelConfig:
                    + di + self.ssm_heads * 2)                # conv/dt/A/D-ish
             return embed + self.n_layers * per
         attn = d * (h * dh) + 2 * d * (kv * dh) + (h * dh) * d
+        if self.mla:
+            r, qk = self.kv_lora_rank, self.qk_nope_head_dim
+            rope, dv = self.qk_rope_head_dim, self.v_head_dim
+            attn = (d * h * (qk + rope) + d * (r + rope) + r
+                    + r * h * (qk + dv) + h * dv * d)
         if self.act == "silu":
             mlp = 3 * d * f
         else:
             mlp = 2 * d * f
         per = attn + mlp
         if self.family == "moe":
-            per = attn + self.n_experts * (3 * d * f)
+            per = attn + (self.n_experts + self.n_shared_experts) * (3 * d * f)
         if self.family == "hybrid":
             kinds = self.layer_kinds()
             rw = self.rglru_width or d
@@ -170,11 +226,22 @@ class ModelConfig:
             att = attn + 2 * d * f + f * d
             return embed + sum(rec if k == "recurrent" else att for k in kinds)
         total = embed + self.n_layers * per
+        if self.first_dense_layers:
+            total += self.first_dense_layers * (3 * d * self.d_ff_dense
+                                                + attn - per)
         if self.family == "encdec":
             # encoder layers: self-attn + mlp; decoder adds cross-attn.
             total += self.n_enc_layers * (attn + mlp)
             total += self.n_layers * attn      # cross-attention blocks
         return total
+
+
+#: The fields the JAX package's ``ModelConfig`` does not have; their
+#: defaults describe no block of its configurations.
+PORT_FIELDS = (
+    "n_shared_experts", "router_scoring", "first_dense_layers",
+    "d_ff_dense", "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+    "v_head_dim", "yarn_factor", "yarn_original_len")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,9 +15,11 @@ the inputs' dtypes. Plain torch einsums, not
 ``scaled_dot_product_attention``: the function must be JAX's, masked rows
 included. Under ``inference_mode`` (serving) the forward runs alone.
 
-Shapes: q (B, Sq, KV, G, dh) grouped queries; k/v (B, Sk, KV, dh). The
-queries sit at positions ``q0 + [0, Sq)`` (``q0`` > 0 for one rank's
-slice of a sequence-sharded query, ``models/layers._sharded_flash``).
+Shapes: q (B, Sq, KV, G, dh) grouped queries; k (B, Sk, KV, dh); v (B,
+Sk, KV, dv), whose width may differ from the q·k width (latent
+attention's 192 against 128). The queries sit at positions ``q0 + [0,
+Sq)`` (``q0`` > 0 for one rank's slice of a sequence-sharded query,
+``models/layers._sharded_flash``).
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ def _scores(q32, k_i, c0, chunk, q_pos, causal, window, scale):
 
 def _fwd(q, k, v, causal, window, chunk, scale, q0=0):
     """(out in ``q``'s dtype, lse float32 (B, Sq, KV, G))."""
-    b, sq, kvh, g, dh = q.shape
+    b, sq, kvh, g, _ = q.shape
     sk = k.shape[1]
     chunk = min(chunk, sk)
     assert sk % chunk == 0, (sk, chunk)
@@ -59,7 +61,8 @@ def _fwd(q, k, v, causal, window, chunk, scale, q0=0):
     m = torch.full((b, sq, kvh, g), -torch.inf, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((b, sq, kvh, g), dtype=torch.float32, device=dev)
-    o = torch.zeros((b, sq, kvh, g, dh), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, sq, kvh, g, v.shape[-1]), dtype=torch.float32,
+                    device=dev)
     for c0 in range(0, sk, chunk):
         v_i = v[:, c0:c0 + chunk].float()
         s = _scores(q32, k[:, c0:c0 + chunk].float(), c0, chunk, q_pos,

@@ -307,7 +307,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
-    return (out * scale.float()).to(x.dtype)
+    # A bfloat16 scale is upcast inside the product: no launch of its own.
+    return (out * scale).to(x.dtype)
 
 
 # -------------------------------------------------------------------- RoPE
@@ -609,14 +610,17 @@ def _sharded_decode_attention(p, x, k_cache, v_cache, pos, cfg, axes,
             k_cache, v_cache)
 
 
-def _cache_insert(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor):
+def _cache_insert(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor,
+                  in_place: bool = False):
     """A copy of ``cache`` with (B, 1, KV, dh) written at per-batch
-    position ``pos`` (B,). JAX's dynamic-update-slice clamps a position
-    past the end; here the caller checks ``pos < S_max``
-    (:func:`repro_torch.models.transformer.decode_step`), and an index
-    past the end raises rather than landing on the last row."""
+    position ``pos`` (B,), or ``cache`` itself so written (``in_place``).
+    JAX's dynamic-update-slice clamps a position past the end; here the
+    caller checks ``pos < S_max``
+    (:func:`repro_torch.models.transformer.check_positions`), and an
+    index past the end raises rather than landing on the last row."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    return cache.index_put((rows, pos.long()), kv[:, 0].to(cache.dtype))
+    put = cache.index_put_ if in_place else cache.index_put
+    return put((rows, pos.long()), kv[:, 0].to(cache.dtype))
 
 
 def _cache_insert_local(cache: torch.Tensor, kv: torch.Tensor,

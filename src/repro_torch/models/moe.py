@@ -20,6 +20,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.formats.ell import EllMatrix
 from repro_torch.models import layers as L
+from repro_torch.obs import trace
 
 
 def init_moe(gen: torch.Generator, cfg, dtype) -> dict:
@@ -30,19 +31,30 @@ def init_moe(gen: torch.Generator, cfg, dtype) -> dict:
         return (torch.randn(shape, generator=gen, device=gen.device)
                 * s).to(dtype)
 
-    return {
+    p = {
         "router": L.dense_init(gen, d, e, torch.float32),
         "wi": normal((e, d, f), scale),
         "wg": normal((e, d, f), scale),
         "wo": normal((e, f, d), 1.0 / f ** 0.5),
     }
+    if cfg.n_shared_experts:
+        p["shared"] = L.init_mlp(gen, cfg, dtype,
+                                 d_ff=cfg.n_shared_experts * f)
+    return p
 
 
 def _route(router: torch.Tensor, xf: torch.Tensor, cfg):
     """xf (T, D) -> (weights (T, k) float32, experts (T, k) int32): the
     router runs in float32 whatever the model's dtype; the top k come in
-    descending order, then a softmax over them."""
+    descending order. ``router_scoring`` "topk_softmax": a softmax over
+    the top k logits; "softmax" (DeepSeek-V2): a softmax over all E, the
+    top k shares kept unrenormalised (its ``routed_scaling_factor`` is
+    1)."""
     logits = torch.einsum("td,de->te", xf.float(), router)
+    if cfg.router_scoring == "softmax":
+        weights, idx = torch.topk(torch.softmax(logits, dim=-1),
+                                  cfg.experts_per_token, dim=-1, sorted=True)
+        return weights, idx.to(torch.int32)
     weights, idx = torch.topk(logits, cfg.experts_per_token, dim=-1,
                               sorted=True)
     return torch.softmax(weights, dim=-1), idx.to(torch.int32)
@@ -54,7 +66,9 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg, axes=None
 
     Capacity is per sequence (C = max(8, int(S·k·cf/E))); each (token,
     choice) takes the next slot of its expert in token-major order, and
-    those past the capacity drop (one-token decode never drops). Returns
+    those past the capacity drop (one-token decode never drops). Shared
+    experts (``n_shared_experts``), one SwiGLU on every token, are added
+    to the routed sum (span ``repro.moe.shared``). Returns
     (out (B, S, D), (weights (B·S, k), experts (B·S, k))). The output is
     named ``moe_out`` for the remat policies.
 
@@ -66,6 +80,9 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg, axes=None
     out_buf, (weights, idx, slot, w) = _dispatch_ffn(
         p["router"], p["wi"], p["wg"], p["wo"], x, x, cfg, 0, e)
     out = _combine(out_buf, slot, w)
+    if "shared" in p:
+        with trace.TRACE.span("repro.moe.shared"):
+            out = out + L.mlp(p["shared"], x, cfg)
     return L.checkpoint_name(out, "moe_out"), (weights, idx)
 
 
@@ -80,26 +97,38 @@ def _dispatch_ffn(router, wi, wg, wo, xr, xd, cfg, e0: int, el: int):
     weights, idx = _route(router, xr.reshape(b * s, d), cfg)
     idx_r = idx.reshape(b, s * k).long()                     # (B, S·k)
     w_r = weights.reshape(b, s, k)
-
-    # Per-row exclusive rank of each (token, choice) within its expert.
-    onehot = F.one_hot(idx_r, e).to(torch.int32)             # (B, S·k, E)
-    ranks = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
-    pos = torch.gather(ranks, 2, idx_r[..., None])[..., 0]
-    keep = pos < cap
-    slot = torch.where(keep, idx_r * cap + pos, e * cap)     # (B, S·k)
-
-    # Dispatch: scatter the int32 inverse map (slot -> source), then
-    # gather the activations of experts [e0, e0 + el). Only the sentinel
-    # column e·cap takes more than one index, and it is dropped.
-    j_ids = torch.arange(s * k, dtype=torch.int32,
-                         device=xr.device).expand(b, s * k)
-    inv = torch.full((b, e * cap + 1), -1, dtype=torch.int32,
-                     device=xr.device)
-    inv = inv.scatter(1, slot, j_ids)[:, e0 * cap:(e0 + el) * cap]
-    tok = torch.where(inv >= 0, inv // k, 0).long()
     rows = torch.arange(b, device=xr.device)[:, None]
-    buf = xd[rows, tok]                                      # (B, el·cap, D)
-    buf = buf * (inv >= 0)[..., None].to(buf.dtype)
+
+    if s == 1 and el == e:
+        # One token a row takes each of its k experts once, at slot 0:
+        # nothing drops, so no ranks and no inverse map (the slots it
+        # fills and their values are the general path's).
+        slot = idx_r * cap                                   # (B, k)
+        buf = xd.new_zeros((b, e * cap, d)).index_put_(
+            (rows, slot), xd[:, 0, None, :].expand(b, k, d))
+        w = w_r
+    else:
+        # Per-row exclusive rank of each (token, choice) within its
+        # expert.
+        onehot = F.one_hot(idx_r, e).to(torch.int32)         # (B, S·k, E)
+        ranks = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+        pos = torch.gather(ranks, 2, idx_r[..., None])[..., 0]
+        keep = pos < cap
+        slot = torch.where(keep, idx_r * cap + pos, e * cap)  # (B, S·k)
+
+        # Dispatch: scatter the int32 inverse map (slot -> source), then
+        # gather the activations of experts [e0, e0 + el). Only the
+        # sentinel column e·cap takes more than one index, and it is
+        # dropped.
+        j_ids = torch.arange(s * k, dtype=torch.int32,
+                             device=xr.device).expand(b, s * k)
+        inv = torch.full((b, e * cap + 1), -1, dtype=torch.int32,
+                         device=xr.device)
+        inv = inv.scatter(1, slot, j_ids)[:, e0 * cap:(e0 + el) * cap]
+        tok = torch.where(inv >= 0, inv // k, 0).long()
+        buf = xd[rows, tok]                                  # (B, el·cap, D)
+        buf = buf * (inv >= 0)[..., None].to(buf.dtype)
+        w = w_r * keep.reshape(b, s, k)
     buf = buf.reshape(b, el, cap, d)
 
     # Expert FFN, batched over (row, expert).
@@ -109,7 +138,6 @@ def _dispatch_ffn(router, wi, wg, wo, xr, xd, cfg, e0: int, el: int):
     else:
         h = L.activation(h, cfg.act)
     out_buf = torch.einsum("becf,efd->becd", h, wo)
-    w = w_r * keep.reshape(b, s, k)
     return out_buf, (weights, idx, slot, w)
 
 
@@ -120,7 +148,8 @@ def _combine(out_buf: torch.Tensor, slot: torch.Tensor, w: torch.Tensor
     b, s, k = w.shape
     d = out_buf.shape[-1]
     out_buf = out_buf.reshape(b, -1, d)
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((b, 1, d))], dim=1)
+    if s > 1:            # one token a row drops nothing: no sentinel
+        out_buf = torch.cat([out_buf, out_buf.new_zeros((b, 1, d))], dim=1)
     rows = torch.arange(b, device=out_buf.device)[:, None]
     gathered = out_buf[rows, slot].reshape(b, s, k, d)
     return torch.einsum("bskd,bsk->bsd", gathered, w.to(gathered.dtype))

@@ -3,12 +3,17 @@ implementation for the dense, MoE, SSM, hybrid, enc-dec and VLM families
 through *layer kinds*.
 
 Layer kinds: ``global`` (full attention), ``local`` (sliding window),
-``recurrent`` (RG-LRU), ``ssd`` (Mamba2) and ``enc`` (bidirectional, the
-encoder's). Params keep JAX's nesting: ``{"embed", "final_norm",
-"blocks": {"s0": ...}, "tail": [...]}`` and, for enc-dec, an ``encoder``
-subtree of the same form; each ``blocks`` slot is stacked along a leading
-period axis as JAX's ``_stack`` does. JAX scans the stacked periods; here
-a Python loop walks the leading axis, then the tail. The VLM and audio
+``mla`` (latent attention, :mod:`repro_torch.models.mla`; the port's
+own), ``recurrent`` (RG-LRU), ``ssd`` (Mamba2) and ``enc``
+(bidirectional, the encoder's). Params keep JAX's nesting: ``{"embed",
+"final_norm", "blocks": {"s0": ...}, "tail": [...]}`` and, for enc-dec,
+an ``encoder`` subtree of the same form; each ``blocks`` slot is stacked
+along a leading period axis as JAX's ``_stack`` does. A model with
+leading dense layers (``first_dense_layers``, DeepSeek-V2's) also has
+``"lead": [...]``, their blocks, whose FFN is a dense SwiGLU of width
+``d_ff_dense``; they run before the stacked periods. JAX scans the
+stacked periods; here a Python loop walks the lead, the leading axis,
+then the tail. The VLM and audio
 frontends are stubs, as in JAX: precomputed patch or frame embeddings
 through a learned adapter.
 
@@ -33,24 +38,32 @@ from torch.utils.checkpoint import (
 
 from repro_torch.common.pytree import tree_map
 from repro_torch.models import layers as L
+from repro_torch.models import mla as A
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssd as S
 from repro_torch.models.config import ModelConfig
 
-ATTENTION_KINDS = ("global", "local")
+ATTENTION_KINDS = ("global", "local", "mla")
 KINDS = ATTENTION_KINDS + ("recurrent", "ssd", "enc")
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a family or layer kind the model does not know."""
+def check_supported(cfg: ModelConfig, axes=None) -> None:
+    """Raise for a family or layer kind the model does not know, and for
+    sharding axes with DeepSeek-V2's blocks (latent attention, shared
+    experts, leading dense layers), which have no mesh path."""
     kinds = set(cfg.layer_kinds()) - set(KINDS)
     if cfg.family not in FAMILIES or kinds:
         what = sorted(kinds) or [cfg.family]
         raise NotImplementedError(
             f"{cfg.name}: unknown {what}; repro_torch runs the families "
             f"{FAMILIES} with the layer kinds {KINDS}")
+    if axes is not None and (cfg.mla or cfg.n_shared_experts
+                             or cfg.first_dense_layers):
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention (MLA), shared experts and "
+            "leading dense layers run unsharded; no mesh path takes axes")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -63,7 +76,9 @@ def _is_moe(cfg: ModelConfig, kind: str) -> bool:
 
 # ------------------------------------------------------------- block init
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype,
-                with_cross: bool = False) -> dict:
+                with_cross: bool = False, dense: bool = False) -> dict:
+    """One block's params; ``dense``: a leading layer's dense FFN of width
+    ``d_ff_dense``."""
     d, dev = cfg.d_model, gen.device
     if kind == "ssd":
         return {"norm1": L.rmsnorm_init(d, dtype, dev),
@@ -72,12 +87,16 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype,
                          "norm2": L.rmsnorm_init(d, dtype, dev)}
     if kind == "recurrent":
         p["rec"] = R.init_rglru_block(gen, cfg, dtype)
+    elif kind == "mla":
+        p["attn"] = A.init_mla(gen, cfg, dtype)
     else:
         p["attn"] = L.init_attention(gen, cfg, dtype)
     if with_cross:
         p["norm_c"] = L.rmsnorm_init(d, dtype, dev)
         p["cross"] = L.init_attention(gen, cfg, dtype)
-    if _is_moe(cfg, kind):
+    if dense:
+        p["ffn"] = L.init_mlp(gen, cfg, dtype, d_ff=cfg.d_ff_dense)
+    elif _is_moe(cfg, kind):
         p["ffn"] = M.init_moe(gen, cfg, dtype)
     else:
         p["ffn"] = L.init_mlp(gen, cfg, dtype)
@@ -130,6 +149,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
                 [_init_block(gen, kind, cfg, dtype, cross) for kind in tail])
 
     with_cross = cfg.family == "encdec"
+    if cfg.first_dense_layers:
+        params["lead"] = [_init_block(gen, kind, cfg, dtype, with_cross,
+                                      dense=True)
+                          for kind in cfg.lead_kinds()]
     params["blocks"], params["tail"] = blocks(cfg.pattern_split(),
                                               with_cross)
     if with_cross:
@@ -146,17 +169,24 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return params
 
 
-def _layers(split, params: dict, cache: Optional[dict] = None):
-    """(kind, block params, block cache, slot) in layer order for the
-    (n_periods, period, tail) ``split``: the stacked periods along their
-    leading axis, then the tail. ``slot`` is ``(si, period index)`` for a
-    stacked block, ``(None, tail index)`` for the tail."""
-    n_periods, period, tail = split
+def _layers(cfg: ModelConfig, params: dict, cache: Optional[dict] = None):
+    """(kind, block params, block cache, slot) in layer order: the leading
+    dense blocks, the stacked periods along their leading axis, then the
+    tail. ``slot`` is ``("lead", index)`` for a leading block, ``(si,
+    period index)`` for a stacked block, ``(None, tail index)`` for the
+    tail."""
+    for li, kind in enumerate(cfg.lead_kinds()):
+        c = None if cache is None else cache["lead"][li]
+        yield kind, params["lead"][li], c, ("lead", li)
+    n_periods, period, tail = cfg.pattern_split()
+    # Each stacked param leaf split into its periods once (an unbind a
+    # leaf), not indexed again for every layer: fewer host ops a step.
+    slots = {k: _unstack(t, n_periods) for k, t in params["blocks"].items()}
     for i in range(n_periods):
         for si, kind in enumerate(period):
             key = f"s{si}"
             c = None if cache is None else _index(cache["blocks"][key], i)
-            yield kind, _index(params["blocks"][key], i), c, (key, i)
+            yield kind, slots[key][i], c, (key, i)
     for ti, kind in enumerate(tail):
         c = None if cache is None else cache["tail"][ti]
         yield kind, params["tail"][ti], c, (None, ti)
@@ -170,15 +200,19 @@ def _gather_cache(cfg: ModelConfig, new: dict) -> dict:
         key = f"s{si}"
         per = [new[(key, i)] for i in range(n_periods)]
         blocks[key] = tree_map(lambda *xs: torch.stack(xs), *per)
-    return {"blocks": blocks,
-            "tail": [new[(None, ti)] for ti in range(len(tail))]}
+    out = {"blocks": blocks,
+           "tail": [new[(None, ti)] for ti in range(len(tail))]}
+    if cfg.first_dense_layers:
+        out["lead"] = [new[("lead", li)]
+                       for li in range(cfg.first_dense_layers)]
+    return out
 
 
 # ------------------------------------------------------------ block apply
-def _ffn(p: dict, kind: str, h2: torch.Tensor, cfg: ModelConfig, axes):
-    """The block's FFN: (out, (weights, experts)) for an MoE block, (out,
-    None) for an MLP."""
-    if _is_moe(cfg, kind):
+def _ffn(p: dict, h2: torch.Tensor, cfg: ModelConfig, axes):
+    """The block's FFN: (out, (weights, experts)) for an MoE block (one
+    with a router), (out, None) for an MLP."""
+    if "router" in p["ffn"]:
         return M.moe_mlp(p["ffn"], h2, cfg, axes)
     return L.mlp(p["ffn"], h2, cfg, axes), None
 
@@ -192,6 +226,8 @@ def _apply_block(kind: str, p: dict, x, cfg, axes, positions, aux,
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     if kind == "recurrent":
         x = x + R.rglru_apply(p["rec"], h, cfg, axes)
+    elif kind == "mla":
+        x = x + A.mla_attention(p["attn"], h, cfg, positions)[0]
     else:
         window = cfg.sliding_window if kind == "local" else None
         x = x + L.attention(p["attn"], h, cfg, axes, positions=positions,
@@ -200,7 +236,7 @@ def _apply_block(kind: str, p: dict, x, cfg, axes, positions, aux,
         hc = L.rmsnorm(x, p["norm_c"], cfg.norm_eps)
         x = x + L.attention(p["cross"], hc, cfg, axes, kv_override=enc_kv)
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    y, routing = _ffn(p, kind, h2, cfg, axes)
+    y, routing = _ffn(p, h2, cfg, axes)
     if routing is not None:
         aux = aux + M.aux_load_balance_loss(*routing, cfg.n_experts)
     return x + y, aux
@@ -268,6 +304,9 @@ def _run_stack(cfg: ModelConfig, axes, split, tree: dict, x, positions,
     """JAX's ``_scan_stack``: the stacked periods of ``split`` in order,
     each under :func:`_remat`, then the tail blocks."""
     n_periods, period, tail = split
+    for kind, p in zip(cfg.lead_kinds(), tree.get("lead", ())):
+        x, aux = _apply_block(kind, p, x, cfg, axes, positions, aux,
+                              _cross_kv(enc_out, p, cfg, axes))
 
     def body(xc, auxc, bp, enc):
         for si, kind in enumerate(period):
@@ -324,7 +363,7 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     Under autograd each period of blocks is recomputed in backward when
     ``cfg.remat == "block"`` (JAX's default), the encoder's too.
     """
-    check_supported(cfg)
+    check_supported(cfg, axes)
     params = on_mesh(params, axes, batch)
     batch = on_mesh(batch, axes, params)
     x = L.embed(params["embed"], batch["tokens"], cfg, axes)
@@ -363,6 +402,11 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
             c = S.init_mamba_cache(cfg, batch, dtype, device)
         elif kind == "recurrent":
             c = R.init_rglru_cache(cfg, batch, dtype, device)
+        elif kind == "mla":
+            c = {"c": torch.zeros((batch, s_max, cfg.kv_lora_rank),
+                                  dtype=dtype, device=device),
+                 "k_pe": torch.zeros((batch, s_max, cfg.qk_rope_head_dim),
+                                     dtype=dtype, device=device)}
         else:
             kv = (batch, s_max, cfg.n_kv_heads, cfg.d_head)
             c = {"k": torch.zeros(kv, dtype=dtype, device=device),
@@ -375,12 +419,20 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
             return c
         return {k: t.expand(n, *t.shape).clone() for k, t in c.items()}
 
-    return {"blocks": {f"s{si}": one(kind, n_periods)
-                       for si, kind in enumerate(period)},
-            "tail": [one(kind) for kind in tail]}
+    out = {"blocks": {f"s{si}": one(kind, n_periods)
+                      for si, kind in enumerate(period)},
+           "tail": [one(kind) for kind in tail]}
+    if cfg.first_dense_layers:
+        out["lead"] = [one(kind) for kind in cfg.lead_kinds()]
+    return out
 
 
-def _decode_block(kind: str, p: dict, c: dict, x, pos, cfg, axes):
+def _decode_block(kind: str, p: dict, c: dict, x, pos, cfg, axes,
+                  tables=None, in_place: bool = False):
+    """One block's decode step; ``tables``: the step's
+    :func:`repro_torch.models.mla.decode_tables`, which every ``mla``
+    block shares; ``in_place``: an ``mla`` block writes its latent cache
+    in place."""
     if kind == "ssd":
         y, c2 = S.mamba_decode(
             p["mix"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), c, cfg, axes)
@@ -388,6 +440,10 @@ def _decode_block(kind: str, p: dict, c: dict, x, pos, cfg, axes):
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
     if kind == "recurrent":
         y, c2 = R.rglru_decode(p["rec"], h, c, cfg, axes)
+    elif kind == "mla":
+        y, lat, pe = A.mla_decode(p["attn"], h, c["c"], c["k_pe"], pos, cfg,
+                                  tables, in_place)
+        c2 = dict(c, c=lat, k_pe=pe)
     else:
         window = cfg.sliding_window if kind == "local" else None
         y, k2, v2 = L.decode_attention(p["attn"], h, c["k"], c["v"], pos,
@@ -400,7 +456,7 @@ def _decode_block(kind: str, p: dict, c: dict, x, pos, cfg, axes):
                                       cfg, axes, cross=True)
         x = x + yc
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    y, _ = _ffn(p, kind, h2, cfg, axes)
+    y, _ = _ffn(p, h2, cfg, axes)
     return x + y, c2
 
 
@@ -452,6 +508,11 @@ def _prefill_block(kind: str, p: dict, c: dict, x, positions, cfg, axes):
         y, st = R.rglru_apply(p["rec"], h, cfg, axes, return_state=True)
         x = x + y
         c2 = _as_cache(st, c)
+    elif kind == "mla":
+        y, lat, pe = A.mla_attention(p["attn"], h, cfg, positions)
+        x = x + y
+        c2 = dict(c, c=_write_prefix(c["c"], lat, axes),
+                  k_pe=_write_prefix(c["k_pe"], pe, axes))
     else:
         window = cfg.sliding_window if kind == "local" else None
         x = x + L.attention(p["attn"], h, cfg, axes, positions=positions,
@@ -462,7 +523,7 @@ def _prefill_block(kind: str, p: dict, c: dict, x, positions, cfg, axes):
         c2 = dict(c, k=_write_prefix(c["k"], k, axes),
                   v=_write_prefix(c["v"], v, axes))
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    y, _ = _ffn(p, kind, h2, cfg, axes)
+    y, _ = _ffn(p, h2, cfg, axes)
     return x + y, c2
 
 
@@ -478,7 +539,7 @@ def prefill_with_cache(params, cache: dict, tokens: torch.Tensor,
     Decoder-only families; enc-dec prefill goes through
     ``serve.engine.prefill_encdec_cache``.
     """
-    check_supported(cfg)
+    check_supported(cfg, axes)
     if cfg.family == "encdec":
         raise NotImplementedError(
             "prefill_with_cache covers decoder-only families; use "
@@ -489,7 +550,7 @@ def prefill_with_cache(params, cache: dict, tokens: torch.Tensor,
     x = L.embed(params["embed"], tokens, cfg, axes)
     positions = torch.arange(s, device=x.device)[None, :]
     new = {}
-    for kind, p, c, slot in _layers(cfg.pattern_split(), params, cache):
+    for kind, p, c, slot in _layers(cfg, params, cache):
         x, new[slot] = _prefill_block(kind, p, c, x, positions, cfg, axes)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     lg = L.logits(params["embed"], x[:, -1:, :], cfg, axes)
@@ -497,36 +558,75 @@ def prefill_with_cache(params, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
-                cfg: ModelConfig, axes=None) -> Tuple[torch.Tensor, dict]:
+                cfg: ModelConfig, axes=None, in_place: bool = False
+                ) -> Tuple[torch.Tensor, dict]:
     """One decoding step: tokens (B, 1), pos (B,) -> (logits (B, 1, Vp),
     a new cache). Where the model has an attention cache, every ``pos``
-    must lie inside it (one host read of ``pos``); JAX's
-    dynamic-update-slice would clamp it silently. A model with recurrent
-    state only bounds no position, as in JAX; nor does an abstract call,
-    whose ``pos`` has no values (``meta``)."""
-    check_supported(cfg)
+    must lie inside it (:func:`check_positions`, one host read of
+    ``pos``); JAX's dynamic-update-slice would clamp it silently. A model
+    with recurrent state only bounds no position, as in JAX; nor does an
+    abstract call, whose ``pos`` has no values (``meta``).
+
+    ``in_place`` (latent-attention models, no mesh): the cache given is
+    written and returned, and ``pos`` is not read on the host, as a
+    captured CUDA graph needs (``serve.engine.make_decode_step(...,
+    graph=True)``); the caller bounds it with :func:`check_positions`."""
+    check_supported(cfg, axes)
+    _, period, tail = cfg.pattern_split()
+    if in_place and (axes is not None or set(
+            cfg.lead_kinds() + period + tail) != {"mla"}):
+        raise NotImplementedError(
+            "an in-place decode step covers latent-attention (MLA) blocks "
+            "without a mesh only")
     s_max = _cache_len(cache)
-    if (s_max is not None and not pos.is_meta
-            and bool(((pos < 0) | (pos >= s_max)).any())):
-        raise ValueError(f"decode position {pos.tolist()} outside the "
-                         f"cache of {s_max} positions")
+    if not in_place:
+        check_positions(cache, pos, cfg)
     params = on_mesh(params, axes, cache, tokens)
     cache = on_mesh(cache, axes, params)
     x = L.embed(params["embed"], tokens, cfg, axes)
+    tables = None
+    if cfg.mla:
+        tables = A.decode_tables(pos, cfg, s_max, x.dtype)
     new = {}
-    for kind, p, c, slot in _layers(cfg.pattern_split(), params, cache):
-        x, new[slot] = _decode_block(kind, p, c, x, pos, cfg, axes)
+    for kind, p, c, slot in _layers(cfg, params, cache):
+        x, new[slot] = _decode_block(kind, p, c, x, pos, cfg, axes, tables,
+                                     in_place)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return L.logits(params["embed"], x, cfg, axes), _gather_cache(cfg, new)
+    lg = L.logits(params["embed"], x, cfg, axes)
+    return lg, (cache if in_place else _gather_cache(cfg, new))
+
+
+def check_positions(cache: dict, pos: torch.Tensor, cfg: ModelConfig
+                    ) -> None:
+    """Raise unless every ``pos`` lies inside the cache's attention
+    positions (one host read of ``pos``), where it has any and ``pos``
+    has values; with a latent cache, also count the step's latent
+    positions (:func:`repro_torch.models.mla.count_positions`)."""
+    s_max = _cache_len(cache)
+    if s_max is None or pos.is_meta:
+        return
+    at = pos.tolist()
+    if min(at) < 0 or max(at) >= s_max:
+        raise ValueError(f"decode position {at} outside the "
+                         f"cache of {s_max} positions")
+    if cfg.mla:
+        A.count_positions(at)
+
+
+#: The leaves of a block's cache that hold one entry a position: an
+#: attention block's keys, a latent-attention block's latents.
+_POSITION_LEAVES = ("k", "c")
 
 
 def _cache_len(cache: dict) -> Optional[int]:
     """S_max of a cache tree: the sequence axis of its first attention
-    cache, in layer-slot order (None when it holds none)."""
-    for c in cache["blocks"].values():
-        if "k" in c:
-            return c["k"].shape[2]
-    for c in cache["tail"]:
-        if "k" in c:
-            return c["k"].shape[1]
+    cache (keys, or latents), stacked slots first, then the tail and the
+    leading blocks (None when it holds none)."""
+    for stacked, group in ((True, cache["blocks"].values()),
+                           (False, cache["tail"]),
+                           (False, cache.get("lead", ()))):
+        for c in group:
+            for leaf in _POSITION_LEAVES:
+                if leaf in c:
+                    return c[leaf].shape[2 if stacked else 1]
     return None

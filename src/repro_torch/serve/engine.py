@@ -15,9 +15,11 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.common.pytree import tree_leaves
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.zoo import Model
+from repro_torch.obs import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,15 +29,85 @@ class ServeConfig:
     max_steps: int = 32
 
 
-def make_decode_step(model: Model, axes=None):
+def make_decode_step(model: Model, axes=None, graph: bool = False):
     """serve_step(params, cache, tokens (B,1), pos (B,)) -> (logits,
-    cache)."""
+    cache).
+
+    ``graph`` (latent-attention models, no mesh): the step writes the
+    cache it is given and returns it, and on the card runs as one captured
+    CUDA graph (:class:`GraphedDecode`): a step costs the host one replay
+    in place of a launch an op."""
     cfg = model.cfg
+    if graph:
+        return GraphedDecode(cfg, axes)
 
     def serve_step(params, cache, tokens, pos):
         return T.decode_step(params, cache, tokens, pos, cfg, axes)
 
     return serve_step
+
+
+class GraphedDecode:
+    """A latent-attention model's decode step, its cache written in place
+    (``transformer.decode_step(..., in_place=True)``), captured once as a
+    CUDA graph and replayed.
+
+    Each call bounds ``pos`` on the host (``transformer.check_positions``).
+    The first call with given params, cache leaves and input shapes runs
+    the step once eagerly on a side stream, where the lazy initialisations
+    that a capture must not meet happen (a step writes only the positions
+    it then reads back, so the replay that follows leaves the same cache),
+    then captures it. A call copies ``tokens`` and ``pos`` into the graph's
+    inputs and replays it (span ``repro.decode.replay``); it returns a copy
+    of the graph's logits and the cache it was given, written. On the CPU,
+    which has no graphs, the same in-place step runs eagerly. The object
+    holds the params and the cache it captured until it is dropped."""
+
+    def __init__(self, cfg, axes=None):
+        if axes is not None:
+            raise NotImplementedError(
+                "a captured decode step runs without a mesh")
+        self.cfg = cfg
+        self.graph = None
+        self._for = None      # (params, cache leaves, input shapes)
+
+    def _captured(self, key) -> bool:
+        held = self._for
+        return (held is not None and held[0] is key[0]
+                and held[2] == key[2] and len(held[1]) == len(key[1])
+                and all(a is b for a, b in zip(held[1], key[1])))
+
+    def _capture(self, key, cache, tokens, pos) -> None:
+        self.graph = self.logits = self._for = None   # free an older pool
+        params, dev = key[0], tokens.device
+        self.tokens, self.pos = tokens.clone(), pos.clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            T.decode_step(params, cache, self.tokens, self.pos, self.cfg,
+                          in_place=True)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.logits, _ = T.decode_step(params, cache, self.tokens,
+                                           self.pos, self.cfg, in_place=True)
+        self.graph, self._for = graph, key
+
+    def __call__(self, params, cache, tokens, pos):
+        T.check_positions(cache, pos, self.cfg)
+        with torch.inference_mode():
+            if tokens.device.type != "cuda":
+                return T.decode_step(params, cache, tokens, pos, self.cfg,
+                                     in_place=True)
+            key = (params, tree_leaves(cache),
+                   (tuple(tokens.shape), tuple(pos.shape)))
+            if not self._captured(key):
+                self._capture(key, cache, tokens, pos)
+            self.tokens.copy_(tokens)
+            self.pos.copy_(pos)
+            with trace.TRACE.span("repro.decode.replay"):
+                self.graph.replay()
+            return self.logits.clone(), cache
 
 
 def make_prefill(model: Model, axes=None, with_cache: bool = False):

@@ -210,10 +210,11 @@ def test_decode_step_rejects_a_position_past_the_cache():
         tm.decode_step(tp, tc, tok, torch.full((B,), 4, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("arch", tconfigs.all_archs())
+@pytest.mark.parametrize("arch", jconfigs.all_archs())
 def test_every_arch_builds_with_jax_tree_and_dtypes(arch):
-    """``build`` and ``init_params`` take all ten archs (reduced) and give
-    JAX's params tree: the same paths, shapes and dtypes."""
+    """``build`` and ``init_params`` take all ten of JAX's archs (reduced)
+    and give JAX's params tree: the same paths, shapes and dtypes. The
+    port's own deepseek-v2-lite is ``tests/test_torch_mla.py``'s."""
     tcfg = tconfigs.get_reduced(arch)
     tm = tbuild(tcfg)
     tp = tT.init_params(tcfg, torch.Generator().manual_seed(0))

@@ -1,7 +1,9 @@
 """The port's LM configs (``repro_torch.configs``, ``repro_torch.models.
-config``) against the JAX package's: all ten architectures' published
-``CONFIG`` and ``reduced()`` field by field, the derived layouts, the
-registry and the shape cells."""
+config``) against the JAX package's: all ten of JAX's architectures'
+published ``CONFIG`` and ``reduced()`` field by field on JAX's fields
+(the port's own fields, ``config.PORT_FIELDS``, at their defaults), the
+derived layouts, the registry and the shape cells. The port's own
+architectures (``PORT_ARCHS``) are checked on their own."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -20,15 +22,49 @@ DTYPES = {jnp.dtype("bfloat16"): torch.bfloat16,
 
 
 def fields(cfg):
-    """Every field, the nested ``AespaConfig`` as a dict."""
-    return dataclasses.asdict(cfg)
+    """Every field of JAX's ``ModelConfig``, the nested ``AespaConfig`` as
+    a dict."""
+    jax_fields = {f.name for f in dataclasses.fields(jconfig.ModelConfig)}
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k in jax_fields}
+
+
+def port_fields_at_defaults(cfg):
+    """The port's own fields hold their defaults."""
+    defaults = {f.name: f.default
+                for f in dataclasses.fields(tconfig.ModelConfig)}
+    jax_fields = {f.name for f in dataclasses.fields(jconfig.ModelConfig)}
+    assert set(defaults) - jax_fields == set(tconfig.PORT_FIELDS)
+    for name in tconfig.PORT_FIELDS:
+        assert getattr(cfg, name) == defaults[name], name
 
 
 def test_registry_matches_jax():
-    assert tconfigs.ARCHS == jconfigs.ARCHS
-    assert tconfigs.ALIASES == jconfigs.ALIASES
-    assert tconfigs.all_archs() == jconfigs.all_archs()
-    assert len(tconfigs.ARCHS) == 10
+    """JAX's ten, in JAX's order, with JAX's ids; the port's own
+    architectures after them."""
+    port_only = {m for m in tconfigs.PORT_ARCHS}
+    assert tuple(a for a in tconfigs.ARCHS
+                 if a not in port_only) == jconfigs.ARCHS
+    assert {k: v for k, v in tconfigs.ALIASES.items()
+            if v not in port_only} == jconfigs.ALIASES
+    assert [a for a in tconfigs.all_archs()
+            if tconfigs.ALIASES[a] not in port_only] == jconfigs.all_archs()
+    assert len(jconfigs.ARCHS) == 10
+    assert tconfigs.ARCHS[len(jconfigs.ARCHS):] == tconfigs.PORT_ARCHS
+
+
+def test_port_only_archs_are_registered():
+    """deepseek-v2-lite: the port's own, found by id and module name,
+    unknown to JAX's registry."""
+    assert tconfigs.PORT_ARCHS == ("deepseek_v2_lite",)
+    assert tconfigs.ALIASES["deepseek-v2-lite"] == "deepseek_v2_lite"
+    assert "deepseek-v2-lite" in tconfigs.all_archs()
+    assert "deepseek-v2-lite" not in jconfigs.all_archs()
+    cfg = tconfigs.get_config("deepseek-v2-lite")
+    assert cfg is tconfigs.get_config("deepseek_v2_lite")
+    assert cfg.name == "deepseek-v2-lite" and cfg.mla
+    cfg.validate()
+    tconfigs.get_reduced("deepseek-v2-lite").validate()
 
 
 @pytest.mark.parametrize("arch", jconfigs.all_archs())
@@ -39,6 +75,7 @@ def test_config_matches_jax(arch, which):
     tc = getattr(tconfigs, get)(arch)
     assert type(tc) is tconfig.ModelConfig
     assert fields(tc) == fields(jc)
+    port_fields_at_defaults(tc)
     assert tc.param_dtype == DTYPES[jc.param_dtype]
     assert tc.layer_kinds() == jc.layer_kinds()
     assert tc.pattern_split() == jc.pattern_split()
