@@ -58,7 +58,11 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    Table I workloads (bibd's n cut the same) on ``aespa_opt`` and on
    ``aespa_equal4`` converts on the card exactly the compressed operands
    of its schedule's partitions, every output the same bits as with the
-   plain conversion and within 1e-4 of float64.
+   plain conversion and within 1e-4 of float64. Then the absorbed latent
+   attention's kernels (``kernels/mla_decode.py``, ``mla`` lines) against
+   the plain path at the long-chat cell's shapes (24 rows of 16384 slots
+   at its contexts), eagerly and from a captured graph replayed at other
+   positions, within 1e-4; timed beside their bound; 128 heads at 4 rows.
 3. The single-kernel path: ``schedule_single_kernel(aespa_equal4())`` then
    ``execute_schedule`` on the card for the nine Table I workloads (and
    citeseer reduced so that the outer product's sparse body runs), each
@@ -229,13 +233,22 @@ so a run that prints the final ``{"ok": true, ...}`` line passed all:
    mamba2-370m x prefill_32k on the multipod mesh (512), each ``ok``, with
    their collectives by kind and link bytes a device. The phase launches
    none of the port's kernels.
+   3m. deepseek-v2-lite's latent decode, the long-chat cell's path: the
+   published widths at 2 of its 27 layers, the cell's 24 sessions
+   prefilled to its contexts in 16384-slot bf16 latent caches, 4 steps of
+   ``make_decode_step(model, graph=True)`` (warm-up, capture, replays)
+   each the same bits as the eager functional step, logits and caches;
+   the absorbed-attention kernel's launches counted from 0, by the
+   wrapper's counter and on the card by the profiler.
 4. A ``{"kernels": [...]}`` line with every kernel's launches on the main
-   paths of phases 3, 3c, 3d, 3e, 3f, 3g, 3h, 3i, 3j, 3k and 3l (each
+   paths of phases 3, 3c, 3d, 3e, 3f, 3g, 3h, 3i, 3j, 3k, 3l and 3m (each
    must be > 0; the counts are set to 0 before each phase and read after
    it) and
    the numbers of phase 2, whose launch shapes include the serving, fleet
    and MoE routing ones; the conversion ``dense_to_ell`` (no TPU kernel
-   behind it) with its main-path launches and bibd_81_3's B by rows.
+   behind it) with its main-path launches and bibd_81_3's B by rows; the
+   absorbed latent attention ``mla_attend`` (none behind it either) with
+   phase 3m's launches and the long-chat shapes' numbers.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -1630,6 +1643,199 @@ def ell_convert_checks(designs=None):
                    ("aespa_equal4", dse.aespa_equal4()))
     ell_queue_launches(designs)
     return top
+
+
+def long_chat():
+    """The latent cell's contexts and slots a row, from the benchmark's
+    ``long_chat`` mix."""
+    mix = json.loads((ROOT / "portbench" / "traffic" / "long_chat.json")
+                     .read_text())
+    return mix["positions"], mix["s_max"]
+
+
+def mla_attend_checks():
+    """The absorbed-attention kernel (``kernels/mla_decode.py``) against the
+    plain path (``models.mla.latent_attend_plain``) at the long-chat cell's
+    shapes: 24 rows of 16384 slots at the cell's contexts,
+    DeepSeek-V2-Lite's widths (16 heads, latent 512, rope 64), bf16 caches
+    with every slot filled. o_lat within 1e-4 of its largest value,
+    eagerly and from a captured graph replayed at other positions (0, a
+    chunk's ends and 16383 among them); the same bits twice, no host sync;
+    timed (CUDA events, and the profile's split and merge kernels alone),
+    its bound by bytes (each valid key's 1152 bytes read once), the plain
+    path's time. Then 128 heads (DeepSeek-V2's) at 4 rows. Returns the
+    row."""
+    from repro_torch.kernels import mla_decode
+    from repro_torch.models import mla
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    scale = mla.softmax_scale(get_config("deepseek-v2-lite"))
+
+    def operands(b, h, s):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+
+        return (rnd(b, h, 512), rnd(b, h, 64),
+                rnd(b, s, 512).bfloat16(), rnd(b, s, 64).bfloat16())
+
+    def rel(got, want):
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            return math.inf
+        return float((got - want).abs().max() / want.abs().max())
+
+    def checked(label, ops, pos):
+        err = rel(mla_decode.mla_attend(*ops, pos, scale),
+                  mla.latent_attend_plain(*ops, pos, scale))
+        log(f"mla {label}: rel err {err:.3e}")
+        if not err <= 1e-4:
+            raise AssertionError(f"mla_attend {label}: rel err {err}")
+        return err
+
+    positions, s = long_chat()
+    b = len(positions)
+    ops = operands(b, 16, s)
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    errs = [checked("long_chat eager", ops, pos)]
+    first = mla_decode.mla_attend(*ops, pos, scale)
+    again, syncs = no_sync_call(
+        lambda: mla_decode.mla_attend(*ops, pos, scale))
+    if not torch.equal(first, again) or syncs:
+        raise AssertionError(f"mla_attend: two runs differ or host syncs "
+                             f"{syncs}")
+    held = pos.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mla_decode.mla_attend(*ops, held, scale)
+    edges = torch.tensor([0, mla_decode.CHUNK - 1, mla_decode.CHUNK, s - 1],
+                         dtype=torch.int32, device="cuda")
+    for label, p in (("replay +64", pos + 64),
+                     ("replay edges", torch.cat([edges, pos[4:]]))):
+        held.copy_(p)
+        graph.replay()
+        err = rel(out, mla.latent_attend_plain(*ops, p, scale))
+        log(f"mla long_chat {label}: rel err {err:.3e}")
+        if not err <= 1e-4:
+            raise AssertionError(f"mla_attend {label}: rel err {err}")
+        errs.append(err)
+    del graph, out, first, again
+    keys = sum(positions) + b
+    row = {"name": "mla_attend", "case": "long_chat 24 x 16384, 16 heads",
+           "max_rel_err": max(errs),
+           "ms": time_ms(lambda: mla_decode.mla_attend(*ops, pos, scale),
+                         20),
+           "bound_ms": keys * 1152 / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            mla_decode.mla_attend(*ops, pos, scale)
+        torch.cuda.synchronize()
+    alone = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "rt::mla_" in e.name]
+    row["kernel_only_ms"] = sum(r.end - r.start for r in alone) / 5e3
+    row["kernel_events"] = len(alone)
+    row["plain_ms"] = time_ms(
+        lambda: mla.latent_attend_plain(*ops, pos, scale), 5)
+    del ops
+    torch.cuda.empty_cache()
+    wide = operands(4, 128, 4096)
+    row["max_rel_err"] = max(row["max_rel_err"], checked(
+        "128 heads", wide, torch.tensor([0, 700, 2047, 4095],
+                                        dtype=torch.int32, device="cuda")))
+    del wide
+    torch.cuda.empty_cache()
+    log("mla " + json.dumps(row))
+    return row
+
+
+def mla_serving(steps: int = 4):
+    """Phase 3m: deepseek-v2-lite's latent decode through the serving
+    path, the path of the long-chat cell: the published widths at two
+    layers (the dense one and an MoE one), the cell's 24 sessions each
+    prefilled to its context (rounded up to 256 positions, as the cell
+    prefills) in a bf16 cache of 16384 slots, then ``steps`` steps of
+    ``make_decode_step(graph=True)`` (its eager warm-up, its capture, then
+    replays) beside the eager functional step, logits and caches the same
+    bits. The kernel's launches are counted with the counter set to 0
+    first, and on the card by the profiler: the warm-up's and the eager
+    steps' layers plus the replays' (``attend_launches`` a replay, one a
+    layer). Returns the launches run on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.common.pytree import tree_leaves, tree_leaves_with_path
+    from repro_torch.kernels import mla_decode
+
+    positions, s_max = long_chat()
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite"), n_layers=2)
+    m = build(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    params = m.init(gen, "cuda")
+    b = len(positions)
+    prompt = [min(-(-p // 256) * 256, s_max) for p in positions]
+    tok = torch.randint(0, cfg.vocab_size, (b, max(prompt)), generator=gen,
+                        device="cuda")
+    fed = torch.randint(0, cfg.vocab_size, (b, steps), generator=gen,
+                        device="cuda")
+    prefill = engine.make_prefill(m, with_cache=True)
+    with torch.inference_mode():
+        cache = m.init_cache(b, s_max, device="cuda")
+        for row, n in enumerate(prompt):
+            _, part = prefill(params, m.init_cache(1, n, device="cuda"),
+                              tok[row:row + 1, :n])
+            # A stacked leaf keeps the layers on axis 0, the rows on 1.
+            for (path, t), one in zip(tree_leaves_with_path(cache),
+                                      tree_leaves(part)):
+                lead = (slice(None),) if path[0] == "blocks" else ()
+                one = one[lead + (0,)]
+                t[lead + (row,)][tuple(slice(0, k) for k in one.shape)
+                                 ].copy_(one)
+            del part
+        ref_cache = tree_map(torch.clone, cache)
+    eager = engine.make_decode_step(m)
+    graphed = engine.make_decode_step(m, graph=True)
+    start = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    mla_decode.launches["mla_attend"] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            for j in range(steps):
+                pos = start + j
+                lg_want, ref_cache = eager(params, ref_cache,
+                                           fed[:, j:j + 1], pos)
+                lg, cache = graphed(params, cache, fed[:, j:j + 1], pos)
+                if not torch.equal(lg, lg_want):
+                    raise AssertionError(f"mla serving: step {j}'s replayed "
+                                         f"logits differ from the eager "
+                                         f"step's")
+        torch.cuda.synchronize()
+    for got, ref_t in zip(tree_leaves(cache), tree_leaves(ref_cache)):
+        if not torch.equal(got, ref_t):
+            raise AssertionError("mla serving: the captured step's cache "
+                                 "differs from the eager step's")
+    calls = mla_decode.launches["mla_attend"]
+    ran = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "rt::mla_attend_split" in e.name)
+    layers = cfg.n_layers
+    # The eager steps' layers, the warm-up's, the capture's (not run), the
+    # replays'.
+    if (graphed.attend_launches != layers
+            or calls != (steps + 2) * layers
+            or ran != (2 * steps + 1) * layers):
+        raise AssertionError(
+            f"mla serving: {graphed.attend_launches} launches captured, "
+            f"{calls} calls, {ran} run on the card; want {layers}, "
+            f"{(steps + 2) * layers}, {(2 * steps + 1) * layers}")
+    log(f"mla serving: {b} sessions at contexts {min(positions)}-"
+        f"{max(positions)} of {s_max}, {steps} captured steps equal to the "
+        f"eager ones, {ran} launches run")
+    del params, cache, ref_cache, graphed, eager
+    torch.cuda.empty_cache()
+    return ran
 
 
 def gustavson_oracle(ap, bp):
@@ -3550,6 +3756,7 @@ def main() -> int:
     scan_checks()
     ell_top = ell_convert_checks((("aespa_opt", opt),
                                   ("aespa_equal4", config)))
+    mla_top = mla_attend_checks()
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 3: the single-kernel path --------------------------------
@@ -3687,6 +3894,12 @@ def main() -> int:
     log(f"phase 3l mesh families: {time.perf_counter() - t0:.1f} s, "
         f"launches {mesh_family_launches}")
 
+    # ---- phase 3m: deepseek-v2-lite's latent decode, captured ------------
+    t0 = time.perf_counter()
+    mla_launches = mla_serving()
+    log(f"phase 3m latent decode: {time.perf_counter() - t0:.1f} s, "
+        f"launches {mla_launches}")
+
     # ---- phase 4: the kernels line ---------------------------------------
     launches = {k: single_launches[k] + many_launches[k] + opt_launches[k]
                 + stream_launches[k] + serve_launches[k] + fleet_launches[k]
@@ -3717,6 +3930,17 @@ def main() -> int:
         "max_abs_err": 0.0, "ms": ell_top["ms"],
         "plain_ms": ell_top["plain_ms"], "bound_ms": ell_top["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "case": ell_top["case"]})
+    # The absorbed latent attention replaces no TPU kernel (the JAX package
+    # has no MLA); its launches are phase 3m's, its numbers the long-chat
+    # cell's shapes (phase 2).
+    kernels.append({
+        "name": "mla_attend", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
+        "replaces": None, "launches": mla_launches,
+        "max_abs_err": mla_top["max_rel_err"], "ms": mla_top["ms"],
+        "kernel_only_ms": mla_top["kernel_only_ms"],
+        "plain_ms": mla_top["plain_ms"], "bound_ms": mla_top["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "case": mla_top["case"]})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

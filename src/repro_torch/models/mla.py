@@ -19,16 +19,21 @@ heads' values go through ``W_o``.
 * Decode (:func:`mla_decode`) runs the absorbed form against the latent
   cache, which holds ``c`` (normed) and ``k_pe`` (rotated) a position and
   no per-head key or value: a head scores ``(q_nope W_UK,h)·c + q_pe·k_pe``
-  and takes ``o_h = (Σ p c) W_UV,h``. The rope tables and the mask of a
-  step's positions (:func:`decode_tables`) are made once for all its
-  layers: every layer launches fewer small kernels from the host.
+  and takes ``o_h = (Σ p c) W_UV,h``. On the card the scores, softmax and
+  ``Σ p c`` are one kernel (:mod:`repro_torch.kernels.mla_decode`) that
+  reads each row's valid positions once; on the CPU they are plain
+  tensor code, the reference. The rope tables of a step's positions
+  (:func:`decode_tables`) are made once for all its layers: every layer
+  launches fewer small kernels from the host.
 
 RoPE rotates half-split pairs, as the port's other layers do (DeepSeek-V2
 rotates interleaved pairs: the same map under a fixed permutation of the
 rope columns of ``W_q`` and ``W_kva``). Spans: ``repro.mla.prefill``
 around the expanded path, ``repro.mla.decode`` around a layer's absorbed
 attention and its cache insert; the counter ``repro.mla.positions``
-counts the latent positions a decode step attends.
+counts the latent positions a decode step attends in each layer, and
+``repro.mla.attend_launches`` the kernel's launches a step issues
+(:func:`count_launches`).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import mla_decode as mla_kernel
 from repro_torch.models import layers as L
 from repro_torch.models.flash import flash_attention
 from repro_torch.obs import trace
@@ -131,20 +137,15 @@ def _rope(x: torch.Tensor, cos2: torch.Tensor, sin2: torch.Tensor):
 
 class DecodeTables(NamedTuple):
     """What every latent-attention layer of one decode step shares: the
-    rope tables at each row's position (:func:`rope_tables`), and the
-    keys it attends, (B, 1, S_max) true at ``[0, pos]``."""
+    rope tables at each row's position (:func:`rope_tables`)."""
 
     cos2: torch.Tensor
     sin2: torch.Tensor
-    valid: torch.Tensor
 
 
-def decode_tables(pos: torch.Tensor, cfg, s_max: int, dtype
-                  ) -> DecodeTables:
+def decode_tables(pos: torch.Tensor, cfg, dtype) -> DecodeTables:
     """The step's :class:`DecodeTables`, once for all its layers."""
-    cos2, sin2 = rope_tables(pos[:, None], cfg, dtype)
-    k_pos = torch.arange(s_max, device=pos.device)
-    return DecodeTables(cos2, sin2, (k_pos[None, :] <= pos[:, None])[:, None])
+    return DecodeTables(*rope_tables(pos[:, None], cfg, dtype))
 
 
 # -------------------------------------------------------------- projections
@@ -190,26 +191,47 @@ def mla_attention(p: dict, x: torch.Tensor, cfg,
         return torch.matmul(o, p["wo"]), c, k_pe
 
 
-def absorbed_attend(q_nope: torch.Tensor, q_pe: torch.Tensor,
-                    wkv_b: torch.Tensor, c_cache: torch.Tensor,
-                    pe_cache: torch.Tensor, valid: torch.Tensor, cfg
-                    ) -> torch.Tensor:
-    """One query a row against the latent cache, float32: q_nope (B, H,
-    nope), q_pe (B, H, rope), caches (B, S_max, r) and (B, S_max, rope),
-    the keys where ``valid`` (B, 1, S_max) holds attended -> the heads'
-    values (B, H, dv). Batched matmuls over the heads (``W_UK``,
-    ``W_UV``) and the rows (the caches)."""
-    nope = cfg.qk_nope_head_dim
-    scale = softmax_scale(cfg)
-    w = wkv_b.float().transpose(0, 1)                   # (H, r, nope + dv)
-    q_lat = torch.matmul(q_nope.float().transpose(0, 1),
-                         w[..., :nope].transpose(1, 2)).transpose(0, 1)
+def latent_attend_plain(q_lat: torch.Tensor, q_pe: torch.Tensor,
+                        c_cache: torch.Tensor, pe_cache: torch.Tensor,
+                        pos: torch.Tensor, scale: float) -> torch.Tensor:
+    """The plain scores, softmax and weighted sum of latents, float32:
+    q_lat (B, H, r), q_pe (B, H, rope), the caches, row b attending keys
+    ``[0, pos[b]]`` -> o_lat (B, H, r), ``Σ p c``; every slot widened and
+    scored, then masked. What :func:`absorbed_attend` runs on the CPU, and
+    the kernel's reference on the card."""
+    valid = (torch.arange(c_cache.shape[1], device=pos.device)
+             <= pos[:, None])[:, None]
     c32 = c_cache.float()
     s = torch.baddbmm(torch.bmm(q_lat, c32.transpose(1, 2)), q_pe.float(),
                       pe_cache.float().transpose(1, 2), beta=scale,
                       alpha=scale)
     p_ = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
-    o_lat = torch.bmm(p_, c32)                          # (B, H, r)
+    return torch.bmm(p_, c32)
+
+
+def absorbed_attend(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                    wkv_b: torch.Tensor, c_cache: torch.Tensor,
+                    pe_cache: torch.Tensor, pos: torch.Tensor, cfg
+                    ) -> torch.Tensor:
+    """One query a row against the latent cache, float32: q_nope (B, H,
+    nope), q_pe (B, H, rope), caches (B, S_max, r) and (B, S_max, rope),
+    row b attending keys ``[0, pos[b]]`` (pos (B,)) -> the heads' values
+    (B, H, dv). ``W_UK`` and ``W_UV`` are batched matmuls over the heads.
+    The scores, softmax and ``Σ p c``: on a CUDA tensor the kernel
+    :func:`repro_torch.kernels.mla_decode.mla_attend` (``pos`` int32; it
+    raises on what it does not take); on the CPU
+    :func:`latent_attend_plain`."""
+    nope = cfg.qk_nope_head_dim
+    scale = softmax_scale(cfg)
+    w = wkv_b.float().transpose(0, 1)                   # (H, r, nope + dv)
+    q_lat = torch.matmul(q_nope.float().transpose(0, 1),
+                         w[..., :nope].transpose(1, 2)).transpose(0, 1)
+    if c_cache.is_cuda:
+        o_lat = mla_kernel.mla_attend(q_lat, q_pe.float(), c_cache,
+                                      pe_cache, pos, scale)
+    else:
+        o_lat = latent_attend_plain(q_lat, q_pe, c_cache, pe_cache, pos,
+                                    scale)
     return torch.matmul(o_lat.transpose(0, 1),
                         w[..., nope:]).transpose(0, 1)
 
@@ -231,15 +253,26 @@ def mla_decode(p: dict, x: torch.Tensor, c_cache: torch.Tensor,
         c_cache = L._cache_insert(c_cache, c, pos, in_place)
         pe_cache = L._cache_insert(pe_cache, k_pe, pos, in_place)
         o = absorbed_attend(q_nope[:, 0], q_pe[:, 0], p["wkv_b"], c_cache,
-                            pe_cache, tables.valid, cfg)
+                            pe_cache, pos, cfg)
         o = o.reshape(b, 1, -1).to(x.dtype)
         return torch.matmul(o, p["wo"]), c_cache, pe_cache
 
 
 def count_positions(at: List[int]) -> None:
-    """With tracing on, the counter ``repro.mla.positions``: the latent
-    positions a decode step attends in each layer, Σ (pos + 1) over its
-    rows, from the positions the step's bound check read to the host."""
-    if trace.ENABLED:
+    """With tracing on or a profiler recording, the counter
+    ``repro.mla.positions``: the latent positions a decode step attends in
+    each layer, Σ (pos + 1) over its rows, from the positions the step's
+    bound check read to the host."""
+    if trace.recording():
         trace.TRACE.counter("repro.mla.positions", sum(at) + len(at),
+                            pid=trace.PID_HOST)
+
+
+def count_launches(n: int) -> None:
+    """With tracing on or a profiler recording, the counter
+    ``repro.mla.attend_launches``: the absorbed-attention kernel's
+    launches that one decode step issues (``serve.engine.GraphedDecode``
+    counts them in the step it captures; 0 on the CPU)."""
+    if trace.recording():
+        trace.TRACE.counter("repro.mla.attend_launches", n,
                             pid=trace.PID_HOST)

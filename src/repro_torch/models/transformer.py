@@ -578,7 +578,6 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
         raise NotImplementedError(
             "an in-place decode step covers latent-attention (MLA) blocks "
             "without a mesh only")
-    s_max = _cache_len(cache)
     if not in_place:
         check_positions(cache, pos, cfg)
     params = on_mesh(params, axes, cache, tokens)
@@ -586,7 +585,7 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
     x = L.embed(params["embed"], tokens, cfg, axes)
     tables = None
     if cfg.mla:
-        tables = A.decode_tables(pos, cfg, s_max, x.dtype)
+        tables = A.decode_tables(pos, cfg, x.dtype)
     new = {}
     for kind, p, c, slot in _layers(cfg, params, cache):
         x, new[slot] = _decode_block(kind, p, c, x, pos, cfg, axes, tables,

@@ -14,7 +14,8 @@ Two process singletons:
 Both are off-by-default / free-when-idle: flip :func:`enable` to start
 recording; with tracing off, instrumented code paths are bit-identical
 to uninstrumented ones. While a ``torch.profiler`` records, the
-tracer's spans are also profiler ranges (:mod:`repro_torch.obs.trace`).
+tracer's spans are also profiler ranges, and its scalar counter samples
+profiler marks (:mod:`repro_torch.obs.trace`).
 """
 from __future__ import annotations
 

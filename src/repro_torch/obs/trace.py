@@ -38,9 +38,13 @@ the shared timebase.
 ``_RecordFunctionFast``, which costs a tenth of ``record_function``'s
 context manager), with or without :data:`ENABLED`: the span then lies on
 the profiler's clock beside the device's events, where a reader of the
-profile can name the device's idle gaps after it. Torch's modules are
-looked up in ``sys.modules``, so a process that never imported torch
-never profiles and this module never imports it.
+profile can name the device's idle gaps after it. A scalar
+:meth:`Tracer.counter` sample is likewise a profiler mark, a range entered
+and left at once, named ``counter:<name>=<value>`` (:data:`COUNTER_MARK`),
+so the profile carries the count beside the work it counts; a site that
+builds its sample only when :func:`recording` holds pays nothing else.
+Torch's modules are looked up in ``sys.modules``, so a process that never
+imported torch never profiles and this module never imports it.
 
 **Disabled-path guarantee (§8).** Tracing is off by default. The
 module-level :data:`ENABLED` flag is checked before *any* allocation:
@@ -94,6 +98,12 @@ def disable() -> bool:
     return enable(False)
 
 
+def recording() -> bool:
+    """Whether a counter sample goes anywhere: tracing is on, or a torch
+    profiler records (the sample is then a profiler mark)."""
+    return ENABLED or _profiler_range() is not None
+
+
 def enabled() -> bool:
     return ENABLED
 
@@ -111,6 +121,9 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+#: The start of a profiler mark's name that carries a counter sample.
+COUNTER_MARK = "counter:"
 
 #: ``torch.autograd.profiler`` once some module has imported torch.
 _profiler_mod = None
@@ -232,7 +245,14 @@ class Tracer:
                 *, pid: int = PID_VIRTUAL, tid: Tid = 0,
                 **series) -> None:
         """Record a counter sample (``ph:"C"``). Either a scalar
-        ``value`` (series named after the counter) or keyword series."""
+        ``value`` (series named after the counter) or keyword series.
+        While a torch profiler records, a scalar sample is also a profiler
+        mark (:data:`COUNTER_MARK`), with or without :data:`ENABLED`."""
+        if value is not None:
+            rng = _profiler_range()
+            if rng is not None:
+                with rng(f"{COUNTER_MARK}{name}={float(value)!r}"):
+                    pass
         if not ENABLED:
             return
         args = dict(series)

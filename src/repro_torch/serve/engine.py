@@ -16,7 +16,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.common.pytree import tree_leaves
+from repro_torch.kernels import mla_decode
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.models import mla as A
 from repro_torch.models import transformer as T
 from repro_torch.models.zoo import Model
 from repro_torch.obs import trace
@@ -60,8 +62,11 @@ class GraphedDecode:
     then captures it. A call copies ``tokens`` and ``pos`` into the graph's
     inputs and replays it (span ``repro.decode.replay``); it returns a copy
     of the graph's logits and the cache it was given, written. On the CPU,
-    which has no graphs, the same in-place step runs eagerly. The object
-    holds the params and the cache it captured until it is dropped."""
+    which has no graphs, the same in-place step runs eagerly. Each call
+    gives the counter ``repro.mla.attend_launches``: the absorbed-attention
+    kernel's launches in the captured step (:attr:`attend_launches`,
+    counted at capture), 0 on the CPU. The object holds the params and the
+    cache it captured until it is dropped."""
 
     def __init__(self, cfg, axes=None):
         if axes is not None:
@@ -70,6 +75,7 @@ class GraphedDecode:
         self.cfg = cfg
         self.graph = None
         self._for = None      # (params, cache leaves, input shapes)
+        self.attend_launches = 0
 
     def _captured(self, key) -> bool:
         held = self._for
@@ -88,15 +94,18 @@ class GraphedDecode:
                           in_place=True)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        before = mla_decode.launches["mla_attend"]
         with torch.cuda.graph(graph):
             self.logits, _ = T.decode_step(params, cache, self.tokens,
                                            self.pos, self.cfg, in_place=True)
+        self.attend_launches = mla_decode.launches["mla_attend"] - before
         self.graph, self._for = graph, key
 
     def __call__(self, params, cache, tokens, pos):
         T.check_positions(cache, pos, self.cfg)
         with torch.inference_mode():
             if tokens.device.type != "cuda":
+                A.count_launches(0)
                 return T.decode_step(params, cache, tokens, pos, self.cfg,
                                      in_place=True)
             key = (params, tree_leaves(cache),
@@ -105,6 +114,7 @@ class GraphedDecode:
                 self._capture(key, cache, tokens, pos)
             self.tokens.copy_(tokens)
             self.pos.copy_(pos)
+            A.count_launches(self.attend_launches)
             with trace.TRACE.span("repro.decode.replay"):
                 self.graph.replay()
             return self.logits.clone(), cache

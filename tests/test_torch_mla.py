@@ -16,6 +16,7 @@ dropped score term, a latent cached before its norm) moves them by 1e-1
 or more."""
 import dataclasses
 import importlib.util
+import json
 import math
 from pathlib import Path
 
@@ -25,6 +26,7 @@ import torch
 import deepseek_v2_reference as REF
 import repro_torch.configs as tconfigs
 from repro_torch.common.pytree import tree_leaves
+from repro_torch.kernels import mla_decode
 from repro_torch.models import build, mla, moe
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import Axes
@@ -127,8 +129,7 @@ def test_absorbed_decode_equals_the_expanded_attention():
     c = torch.randn(B, s_max, r, generator=g)
     k_pe = torch.randn(B, s_max, rope, generator=g)
     pos = torch.tensor([5, 19])
-    valid = mla.decode_tables(pos, cfg, s_max, torch.float32).valid
-    got = mla.absorbed_attend(q_nope, q_pe, wkv_b, c, k_pe, valid, cfg)
+    got = mla.absorbed_attend(q_nope, q_pe, wkv_b, c, k_pe, pos, cfg)
     kv = torch.einsum("bsc,che->bshe", c, wkv_b)
     k = torch.cat([kv[..., :nope], k_pe[:, :, None].expand(-1, -1, h, -1)],
                   dim=-1)
@@ -388,3 +389,280 @@ def test_spans_and_the_positions_counter():
     with torch.inference_mode():
         m.decode_step(p, cache, tok, pos)
     assert obs.TRACE.events() == []
+
+
+# ------------------------------------------- the absorbed-attention kernel
+def _split(x):
+    """x as the kernel feeds it to bfloat16 mmas: hi + lo, each bfloat16."""
+    hi = x.bfloat16().float()
+    return [hi, (x - hi).bfloat16().float()]
+
+
+def kernel_mirror(q_lat, q_pe, c_cache, pe_cache, pos, scale, chunk,
+                  parts=_split):
+    """``csrc/mla_decode.cu``'s arithmetic in plain float32: each row's keys
+    ``[0, pos]`` in chunks of ``chunk``; a chunk's scores from q's parts
+    against the bfloat16 cache widened exactly, its max, ``exp(s - max)``,
+    their sum and ``Σ p c`` from p's parts; the chunks merged by their
+    maxes (flash attention's merge)."""
+    qs, pes = parts(q_lat), parts(q_pe)
+    out = torch.empty(q_lat.shape)
+    for b in range(q_lat.shape[0]):
+        n = int(pos[b]) + 1
+        ms, ls, os_ = [], [], []
+        for lo in range(0, n, chunk):
+            c = c_cache[b, lo:min(lo + chunk, n)].float()
+            pe = pe_cache[b, lo:min(lo + chunk, n)].float()
+            s = scale * (sum(q[b] @ c.T for q in qs)
+                         + sum(q[b] @ pe.T for q in pes))
+            m = s.max(-1).values
+            p = torch.exp(s - m[:, None])
+            ms.append(m)
+            ls.append(p.sum(-1))
+            os_.append(sum(x @ c for x in parts(p)))
+        top = torch.stack(ms).max(0).values
+        w = [torch.exp(m - top) for m in ms]
+        total = sum(lw * wi for lw, wi in zip(ls, w))
+        out[b] = sum(o * wi[:, None] for o, wi in zip(os_, w)) / total[:, None]
+    return out
+
+
+def latent_operands(h, s_max, pos, seed=5):
+    """The published widths at ``h`` heads: the config, q_nope, q_pe,
+    wkv_b, and bfloat16 caches of ``s_max`` slots, every slot filled."""
+    cfg = dataclasses.replace(tconfigs.get_config("deepseek-v2-lite"),
+                              n_heads=h)
+    g = torch.Generator().manual_seed(seed)
+    b, r = len(pos), cfg.kv_lora_rank
+    nope, rope, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    return (cfg, torch.randn(b, h, nope, generator=g),
+            torch.randn(b, h, rope, generator=g),
+            torch.randn(r, h, nope + dv, generator=g) / math.sqrt(r),
+            torch.randn(b, s_max, r, generator=g).bfloat16(),
+            torch.randn(b, s_max, rope, generator=g).bfloat16())
+
+
+@pytest.mark.parametrize("heads", [16, 32])
+def test_the_kernels_arithmetic_matches_the_plain_path(heads):
+    """The kernel's arithmetic (chunks of its length, q and p split into
+    bfloat16 hi and lo, the chunks' merge) gives ``absorbed_attend``'s
+    plain path within float32 rounding, at ragged positions: 0, a chunk
+    less one, a chunk, and the last slot. q and p rounded to bfloat16
+    alone miss it by more than ten times the tolerance."""
+    chunk = mla_decode.CHUNK
+    s_max = 2 * chunk + 40
+    pos = torch.tensor([0, chunk - 1, chunk, s_max - 1], dtype=torch.int32)
+    cfg, q_nope, q_pe, wkv_b, c, pe = latent_operands(heads, s_max, pos)
+    want = mla.absorbed_attend(q_nope, q_pe, wkv_b, c, pe, pos, cfg)
+    nope = cfg.qk_nope_head_dim
+    w = wkv_b.transpose(0, 1)
+    q_lat = (q_nope.transpose(0, 1) @ w[..., :nope].transpose(1, 2)
+             ).transpose(0, 1)
+
+    def err(parts):
+        o_lat = kernel_mirror(q_lat, q_pe, c, pe, pos,
+                              mla.softmax_scale(cfg), chunk, parts)
+        got = (o_lat.transpose(0, 1) @ w[..., nope:]).transpose(0, 1)
+        return float((got - want).abs().max() / want.abs().max())
+
+    assert err(_split) <= 1e-5
+    assert err(lambda x: [x.bfloat16().float()]) > 1e-4
+
+
+def _refused():
+    """Operands the kernel refuses, each with the words of its error."""
+    b, h, s = 2, 16, 64
+    ok = dict(q_lat=torch.zeros(b, h, 512), q_pe=torch.zeros(b, h, 64),
+              c_cache=torch.zeros(b, s, 512, dtype=torch.bfloat16),
+              pe_cache=torch.zeros(b, s, 64, dtype=torch.bfloat16),
+              pos=torch.zeros(b, dtype=torch.int32))
+    flat = torch.zeros(b * s * 512 + 8, dtype=torch.bfloat16)
+    cases = {
+        "rank": (dict(c_cache=torch.zeros(b, s, 256, dtype=torch.bfloat16)),
+                 "shape"),
+        "rope": (dict(pe_cache=torch.zeros(b, s, 32, dtype=torch.bfloat16)),
+                 "shape"),
+        "heads": (dict(q_lat=torch.zeros(b, 8, 512),
+                       q_pe=torch.zeros(b, 8, 64)), "multiple of 16"),
+        "cache dtype": (dict(c_cache=torch.zeros(b, s, 512)), "bfloat16"),
+        "query dtype": (dict(q_lat=torch.zeros(b, h, 512,
+                                               dtype=torch.bfloat16)),
+                        "float32"),
+        "pos dtype": (dict(pos=torch.zeros(b, dtype=torch.int64)), "int32"),
+        "pos rows": (dict(pos=torch.zeros(b + 1, dtype=torch.int32)),
+                     "pos"),
+        "last stride": (dict(c_cache=torch.zeros(
+            b, 512, s, dtype=torch.bfloat16).transpose(1, 2)), "contiguous"),
+        "row stride": (dict(c_cache=torch.zeros(
+            b, s, 516, dtype=torch.bfloat16)[..., :512]), "aligned"),
+        "first element": (dict(c_cache=flat[1:1 + b * s * 512].view(
+            b, s, 512)), "aligned"),
+        "cache rows": (dict(pe_cache=torch.zeros(b, s + 1, 64,
+                                                 dtype=torch.bfloat16)),
+                       "shape"),
+    }
+    return ok, cases
+
+
+@pytest.mark.parametrize("case", sorted(_refused()[1]))
+def test_the_kernel_wrapper_refuses_what_it_does_not_take(case):
+    ok, cases = _refused()
+    change, words = cases[case]
+    with pytest.raises(ValueError, match=words):
+        mla_decode.check_operands(**{**ok, **change})
+
+
+def test_the_kernel_wrapper_takes_a_layers_slice_and_needs_the_card():
+    """A layer's slice of a stacked cache passes the checks by its
+    strides; CPU operands are refused for their device, before any
+    build."""
+    ok, _ = _refused()
+    stacked = torch.zeros(3, 2, 64, 512, dtype=torch.bfloat16)
+    pe = torch.zeros(3, 2, 64, 64, dtype=torch.bfloat16)
+    got = mla_decode.check_operands(ok["q_lat"], ok["q_pe"], stacked[1],
+                                    pe[1], ok["pos"])
+    assert got == (2, 16, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mla_decode.mla_attend(**ok, scale=0.1)
+
+
+def test_the_launch_counter_on_the_cpus_eager_step():
+    """``make_decode_step(graph=True)`` on the CPU runs the step eagerly,
+    launches no kernel and says so: the counter
+    ``repro.mla.attend_launches`` reads 0 beside ``repro.mla.positions``.
+    Under a profiler, with tracing off, both are profiler marks
+    (``counter:<name>=<value>``), which the benchmark reads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+
+    cfg, m, p = model_and_params()
+    pos = torch.tensor([3, 8], dtype=torch.int32)
+    tok = torch.zeros((B, 1), dtype=torch.int32)
+    step = engine.make_decode_step(m, graph=True)
+    before = mla_decode.launches["mla_attend"]
+    with torch.inference_mode():
+        cache = m.init_cache(B, 16, device="cpu")
+        obs.TRACE.clear()
+        prev = obs.enable(True)
+        try:
+            step(p, cache, tok, pos)
+            events = obs.TRACE.events()
+        finally:
+            obs.enable(prev)
+            obs.TRACE.clear()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(p, cache, tok, pos)
+    counters = {k: v for e in events if e["ph"] == "C"
+                for k, v in e["args"].items()}
+    assert counters == {"repro.mla.positions": 13.0,
+                        "repro.mla.attend_launches": 0.0}
+    marks = [e.name for e in prof.events()
+             if e.name.startswith(obs.trace.COUNTER_MARK)]
+    assert marks == ["counter:repro.mla.positions=13.0",
+                     "counter:repro.mla.attend_launches=0.0"]
+    assert mla_decode.launches["mla_attend"] == before
+    assert obs.TRACE.events() == []
+
+
+# ------------------------------------------------------------ on the card
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: this test runs on the card")
+    return torch.device("cuda")
+
+
+def _long_chat():
+    mix = json.loads((ROOT / "portbench" / "traffic" / "long_chat.json")
+                     .read_text())
+    return mix["positions"], mix["s_max"]
+
+
+@pytest.mark.card
+def test_the_kernel_matches_the_plain_path_on_the_card(card):
+    """At the long-chat cell's shapes (24 rows, 16384 slots, its
+    contexts): ``absorbed_attend`` through the kernel against the plain
+    path on the card, eagerly, then in a captured graph replayed with two
+    other position vectors, within 1e-4 of the largest value."""
+    positions, s_max = _long_chat()
+    pos0 = torch.tensor(positions, dtype=torch.int32, device=card)
+    cfg, *ops = latent_operands(16, s_max, positions)
+    q_nope, q_pe, wkv_b, c, pe = (t.to(card) for t in ops)
+    q_nope, q_pe, wkv_b = (t.bfloat16() for t in (q_nope, q_pe, wkv_b))
+    nope, scale = cfg.qk_nope_head_dim, mla.softmax_scale(cfg)
+
+    def plain(pos):
+        w = wkv_b.float().transpose(0, 1)
+        q_lat = torch.matmul(q_nope.float().transpose(0, 1),
+                             w[..., :nope].transpose(1, 2)).transpose(0, 1)
+        o_lat = mla.latent_attend_plain(q_lat, q_pe, c, pe, pos, scale)
+        return torch.matmul(o_lat.transpose(0, 1),
+                            w[..., nope:]).transpose(0, 1)
+
+    def attend(pos):
+        return mla.absorbed_attend(q_nope, q_pe, wkv_b, c, pe, pos, cfg)
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    with torch.inference_mode():
+        before = mla_decode.launches["mla_attend"]
+        assert rel(attend(pos0), plain(pos0)) <= 1e-4
+        assert mla_decode.launches["mla_attend"] == before + 1
+        held = pos0.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = attend(held)
+        chunk = mla_decode.CHUNK
+        edges = torch.tensor([0, chunk - 1, chunk, s_max - 1],
+                             dtype=torch.int32, device=card)
+        for pos in (pos0 + 64, torch.cat([edges, pos0.flip(0)[4:]])):
+            held.copy_(pos)
+            graph.replay()
+            assert rel(out, plain(pos)) <= 1e-4
+        assert mla_decode.launches["mla_attend"] == before + 2
+
+
+@pytest.mark.card
+def test_the_captured_step_holds_the_kernel_on_the_card(card):
+    """The published widths at two layers (the dense one and one MoE
+    layer), a prompt past a chunk: the captured step repeats the eager
+    functional step bit for bit, holds one kernel launch a layer and says
+    so on every replay (``repro.mla.attend_launches``)."""
+    from repro_torch import obs
+
+    cfg = dataclasses.replace(tconfigs.get_config("deepseek-v2-lite"),
+                              n_layers=2)
+    m = build(cfg)
+    p = m.init(torch.Generator(device="cuda").manual_seed(3), "cuda")
+    prompt = mla_decode.CHUNK + 8
+    tok = torch.randint(0, cfg.vocab_size, (4, prompt + 6), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(4))
+    pre = engine.make_prefill(m, with_cache=True)
+    step = engine.make_decode_step(m)
+    graphed = engine.make_decode_step(m, graph=True)
+    with torch.inference_mode():
+        _, want = pre(p, m.init_cache(4, prompt + 64, device="cuda"),
+                      tok[:, :prompt])
+        _, cache = pre(p, m.init_cache(4, prompt + 64, device="cuda"),
+                       tok[:, :prompt])
+        obs.TRACE.clear()
+        prev = obs.enable(True)
+        try:
+            for i in range(prompt, prompt + 6):
+                pos = torch.arange(4, dtype=torch.int32, device="cuda") + i
+                lg_want, want = step(p, want, tok[:, i:i + 1], pos)
+                lg, cache = graphed(p, cache, tok[:, i:i + 1], pos)
+                assert torch.equal(lg, lg_want)
+            events = obs.TRACE.events()
+        finally:
+            obs.enable(prev)
+            obs.TRACE.clear()
+    assert graphed.attend_launches == cfg.n_layers
+    assert [e["args"]["repro.mla.attend_launches"] for e in events
+            if e["name"] == "repro.mla.attend_launches"] == [2.0] * 6
+    for a, b in zip(tree_leaves(cache), tree_leaves(want)):
+        assert torch.equal(a, b)
